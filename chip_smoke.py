@@ -4,18 +4,24 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
   1. prints the card (nvidia-smi name and power limit) and builds the CUDA
-     kernels from dctpu_torch/csrc;
-  2. holds each kernel K1-K4 against its plain torch twin on the card,
-     bit-exact, at 256 x 4096, 8192 x 4096 and 256 x 200 (block_len % 128
-     != 0), with edge rows, and times both at 8192 x 4096 with CUDA events;
-  3. drives the adaptive compress -> write_frame -> read_frame -> decompress
-     path at the bench geometry (8192 blocks x 4096 int32 = 128 MiB,
-     resident on the card), checks the round trip bit-exact, both coder
-     groups non-empty and every kernel launched;
-  4. builds the C++ oracle and checks that its adaptive frame of the same
-     corpus is byte-identical to the port's and that it decodes the port's
-     frame back to the input;
-  5. prints one JSON line of the kernels, then the result line.
+     kernels from dctpu_torch/csrc (one nvcc per source, in parallel);
+  2. holds each kernel K1-K4, K5a, K5b and K6 against its plain torch twin
+     on the card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
+     (block_len % 128 != 0) and 32 x 12000 (rows too large for K5a's
+     shared-memory path), with edge rows, and times both at 8192 x 4096
+     with CUDA events beside each kernel's bound;
+  3. drives compress -> write_frame -> read_frame -> decompress for the
+     adaptive, rice and vertical coders at the bench geometry (8192 blocks
+     x 4096 int32 = 128 MiB, resident on the card), each with the launch
+     counters set to 0 just before it and read just after: every round
+     trip bit-exact, every kernel of each path launched (K6 once per
+     candidate on the rice path);
+  4. builds the C++ oracle and checks, for each coder, that its frame of the
+     same corpus is byte-identical to the port's and that it decodes the
+     port's frame back to the input;
+  5. runs the port's CLI (``python3 -m dctpu_torch.cli.main verify``) on the
+     card as a subprocess;
+  6. prints one JSON line of the kernels, then the result line.
 
 Any failure exits non-zero. Without a CUDA device it fails; it never runs
 on the CPU instead.
@@ -24,6 +30,7 @@ on the CPU instead.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import tempfile
@@ -32,7 +39,14 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 BENCH_BLOCKS, BENCH_LEN = 8192, 4096
-SHAPES = ((256, 4096), (BENCH_BLOCKS, BENCH_LEN), (256, 200))
+SHAPES = ((256, 4096), (BENCH_BLOCKS, BENCH_LEN), (256, 200), (32, 12000))
+K_MAX = 24
+CODERS = ("adaptive", "rice", "vertical")
+# H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
+# rate outside the tensor cores for the kernels' int32 ALU work (the card's
+# int32 rate is no higher, so the bound stays a least time).
+PEAK_BYTES_S = 3.35e12
+PEAK_OPS_S = 67e12
 
 
 def fail(msg: str) -> None:
@@ -94,42 +108,87 @@ def kernel_inputs(B: int, L: int, seed: int):
     n[-1] = max(1, L - 57)             # ragged tail
     n[-2] = 0                          # empty block
     n[3] = min(L, 128)                 # cut at a sub-block boundary
-    return x, z.view(np.int32), hist, n
+    k = (np.arange(B) % 28).astype(np.int32)  # every Rice k of the coders
+    return x, z.view(np.int32), hist, n, k
+
+
+def bound(nbytes: float, ops: float):
+    """(least ms on the card, what bounds it) for this many bytes moved
+    (each input read once, each output written once) and integer ops."""
+    t_bytes, t_ops = nbytes / PEAK_BYTES_S * 1e3, ops / PEAK_OPS_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def work(key, B, L, n, b, rows_words):
+    """(bytes, ops) of kernel `key` on this run's inputs. ops count the
+    integer work per valid sample that the function needs: 4 per (sample,
+    candidate, k) for the RICE totals (shift, compare, select, add), 32 per
+    (sample, candidate) for the VERTICAL exceed table, 32 for K3's bit
+    planes, 3 per decoded plane bit for K4, and ~20 per codeword for the
+    RICE pack (codeword, scan, ORs) and unpack (window, count, extract)."""
+    v = int(n.clamp(0, L).sum())
+    K1 = K_MAX + 1
+    sub_bytes = B * -(-L // 128) * 4
+    return {
+        "K1": (4 * B * L + 16 * B + 4 * B + 8 * B * (K1 + 1), v * 2 * (4 * K1 + 32)),
+        "K2": (4 * B * L + 4 * B + 4 * B * (K1 + 1), v * (4 * K1 + 32)),
+        "K3": (4 * B * L + 4 * B + sub_bytes * (128 + 4 + 4 + 16), v * 64),
+        "K4": (4 * rows_words["K4"] + 4 * B + 4 * B * L, 3 * 128 * int(b.sum())),
+        "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
+        "K5b": (4 * rows_words["K5b"] + 8 * B + 4 * B * L, 20 * v),
+        "K6": (4 * B * L + 4 * B + 4 * B * K1, v * 4 * K1),
+    }[key]
+
+
+RECS = {
+    "K1": ("K1 select_xbp", "dctpu_torch/csrc/select.cu",
+           "dctpu/kernels/select_bp.py:221"),
+    "K2": ("K2 select_bp", "dctpu_torch/csrc/select.cu",
+           "dctpu/kernels/select_bp.py:206"),
+    "K3": ("K3 vemit", "dctpu_torch/csrc/vemit.cu",
+           "dctpu/kernels/vemit_pallas.py:116"),
+    "K4": ("K4 vdec", "dctpu_torch/csrc/vdec.cu",
+           "dctpu/kernels/vdec_pallas.py:76"),
+    "K5a": ("K5a rice_pack", "dctpu_torch/csrc/pack.cu",
+            "dctpu/kernels/attic/pack_pallas.py:72"),
+    "K5b": ("K5b rice_unpack", "dctpu_torch/csrc/unpack.cu",
+            "dctpu/kernels/attic/unpack_pallas.py:56"),
+    "K6": ("K6 rice_totals", "dctpu_torch/csrc/select.cu",
+           "dctpu/kernels/select_pallas.py:72"),
+}
 
 
 def check_kernels(dev):
     """Phase 2: each kernel against its twin; returns per-kernel records."""
     import torch
 
+    from dctpu_torch.kernels.pack import rice_pack, rice_pack_plain
+    from dctpu_torch.kernels.rice_totals import rice_totals, rice_totals_plain
     from dctpu_torch.kernels.select_bp import (
         adaptive_totals_bp,
         adaptive_totals_bp_plain,
         adaptive_totals_xbp,
         adaptive_totals_xbp_plain,
     )
+    from dctpu_torch.kernels.unpack import rice_unpack, unpack
     from dctpu_torch.kernels.vdec import decode_vertical, decode_vertical_plain
     from dctpu_torch.kernels.vemit import vertical_emit, vertical_emit_plain
     from dctpu_torch.kernels.vertical import assemble_rows
 
     recs = {
-        "K1": dict(name="K1 select_xbp", source="dctpu_torch/csrc/select.cu",
-                   replaces="dctpu/kernels/select_bp.py:221"),
-        "K2": dict(name="K2 select_bp", source="dctpu_torch/csrc/select.cu",
-                   replaces="dctpu/kernels/select_bp.py:206"),
-        "K3": dict(name="K3 vemit", source="dctpu_torch/csrc/vemit.cu",
-                   replaces="dctpu/kernels/vemit_pallas.py:116"),
-        "K4": dict(name="K4 vdec", source="dctpu_torch/csrc/vdec.cu",
-                   replaces="dctpu/kernels/vdec_pallas.py:76"),
+        key: dict(name=name, route="cuda", source=src, replaces=rep,
+                  max_abs_err=0, library_ms=None)
+        for key, (name, src, rep) in RECS.items()
     }
-    for r in recs.values():
-        r.update(route="cuda", max_abs_err=0)
-    K = 24
+    K = K_MAX
     for si, (B, L) in enumerate(SHAPES):
-        x, z, hist, n = (
+        x, z, hist, n, k = (
             torch.from_numpy(a).to(dev) for a in kernel_inputs(B, L, 100 + si)
         )
-        planes, b, _, n_exc, e, pos_words, vals = vertical_emit_plain(z, n, L)
+        planes, b, vwords, n_exc, e, pos_words, vals = vertical_emit_plain(z, n, L)
         rows = assemble_rows(planes, b, n_exc, e, pos_words, vals, L)
+        payload, bit_len = rice_pack_plain(z, k, n, L)
+        rice_rows = torch.nn.functional.pad(payload, (0, 2))
         cases = {
             "K1": (lambda: adaptive_totals_xbp(x, hist, n, L, K),
                    lambda: adaptive_totals_xbp_plain(x, hist, n, L, K)),
@@ -139,6 +198,12 @@ def check_kernels(dev):
                    lambda: vertical_emit_plain(z, n, L)),
             "K4": (lambda: (decode_vertical(rows, n, L),),
                    lambda: (decode_vertical_plain(rows, n, L),)),
+            "K5a": (lambda: rice_pack(z, k, n, L),
+                    lambda: rice_pack_plain(z, k, n, L)),
+            "K5b": (lambda: (rice_unpack(rice_rows, k, n, L),),
+                    lambda: (unpack(rice_rows, k, n, L),)),
+            "K6": (lambda: (rice_totals(z, n, L, K),),
+                   lambda: (rice_totals_plain(z, n, L, K),)),
         }
         for key, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -149,29 +214,50 @@ def check_kernels(dev):
             if err:
                 fail(f"{key} differs from its twin at {B}x{L}")
             if (B, L) == (BENCH_BLOCKS, BENCH_LEN):
-                recs[key]["ms"] = time_ms(kern, 10)
-                recs[key]["plain_ms"] = time_ms(plain, 3)
-                print(f"  {key} {B}x{L}: kernel {recs[key]['ms']:.3f} ms, "
-                      f"plain {recs[key]['plain_ms']:.3f} ms", flush=True)
-        del x, z, hist, n, rows, planes, pos_words, vals
+                r = recs[key]
+                r["ms"] = time_ms(kern, 10)
+                r["plain_ms"] = time_ms(plain, 3)
+                sync = -(-L // 256) * B
+                words = {  # the staged rows' live words, not their padding
+                    "K4": sync + int(vwords.sum()),
+                    "K5a": int(payload.numel()),
+                    "K5b": sync + int(((bit_len + 31) // 32).sum()),
+                }
+                nbytes, ops = work(key, B, L, n, b, words)
+                r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
+                print(f"  {key} {B}x{L}: kernel {r['ms']:.3f} ms, plain "
+                      f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
+                      f"({r['bound_by']}: {nbytes} B, {ops} ops)", flush=True)
+        del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload, rice_rows
         torch.cuda.empty_cache()
     return recs
 
 
 def counters():
-    from dctpu_torch.kernels import select_bp, vdec, vemit
+    from dctpu_torch.kernels import pack, rice_totals, select_bp, unpack, vdec, vemit
 
     return {
         "K1": select_bp.adaptive_totals_xbp,
         "K2": select_bp.adaptive_totals_bp,
         "K3": vemit.vertical_emit,
         "K4": vdec.decode_vertical,
+        "K5a": pack.rice_pack,
+        "K5b": unpack.rice_unpack,
+        "K6": rice_totals.rice_totals,
     }
 
 
-def main_path(dev):
-    """Phase 3: the adaptive round trip at 128 MiB. Returns (streams, ids,
-    cads, frame bytes, launches per kernel)."""
+# kernels each path must launch (K6: once per candidate, 6 by default)
+NEEDS = {
+    "adaptive": ("K1", "K2", "K3", "K4", "K5a", "K5b"),
+    "rice": ("K5a", "K5b", "K6"),
+    "vertical": ("K3", "K4"),
+}
+
+
+def run_path(dev, coder, streams, ids, cads):
+    """Phase 3, one coder: the 128 MiB round trip. Returns (frame bytes,
+    launches per kernel)."""
     import numpy as np
     import torch
 
@@ -180,15 +266,11 @@ def main_path(dev):
     from dctpu_torch.corpus import synth_corpus
     from dctpu_torch.format import read_frame, write_frame
 
-    cfg = CodecConfig(coder="adaptive")
+    cfg = CodecConfig(coder=coder)
     # warm-up on a small corpus (CUDA context, allocator), not counted
     warm, _, _ = synth_corpus(2, 3 * BENCH_LEN, seed=7)
     decompress(read_frame(write_frame(compress(warm, cfg, device=dev))), device=dev)
 
-    streams, ids, cads = synth_corpus(
-        16, BENCH_BLOCKS * BENCH_LEN // 16, seed=123, mixed_cadence=True,
-        cumulative_frac=0.25,
-    )
     raw_bytes = sum(s.nbytes for s in streams)
     for fn in counters().values():
         fn.launches = 0
@@ -205,31 +287,33 @@ def main_path(dev):
     if len(out) != len(streams) or not all(
         np.array_equal(a, b) for a, b in zip(streams, out)
     ):
-        fail("128 MiB adaptive round trip is not bit-exact")
+        fail(f"128 MiB {coder} round trip is not bit-exact")
     hist = np.bincount(frame.blocks.coder_arr(), minlength=2)
-    print(f"main path: {frame.blocks.num_blocks} blocks x {BENCH_LEN}, "
+    print(f"{coder} path: {frame.blocks.num_blocks} blocks x {BENCH_LEN}, "
           f"{raw_bytes} bytes -> {len(data)} bytes, ratio "
           f"{raw_bytes / len(data):.4f}, RICE {hist[0]} / VERTICAL {hist[1]} "
           f"blocks, round trip bit-exact")
-    print(f"main path: compress+write_frame {1e3 * (t1 - t0):.1f} ms "
+    print(f"{coder} path: compress+write_frame {1e3 * (t1 - t0):.1f} ms "
           f"({raw_bytes / (t1 - t0) / 1e9:.3f} GB/s), read_frame+decompress "
           f"{1e3 * (t2 - t1):.1f} ms ({raw_bytes / (t2 - t1) / 1e9:.3f} GB/s), "
           f"host clock")
-    print("main path encode stages (CUDA events, ms): "
+    print(f"{coder} path encode stages (CUDA events, ms): "
           + json.dumps({k: round(v, 3) for k, v in enc_ms.items()}))
-    print("main path decode stages (CUDA events, ms): "
+    print(f"{coder} path decode stages (CUDA events, ms): "
           + json.dumps({k: round(v, 3) for k, v in dec_ms.items()}))
-    print(f"main path kernel launches: {json.dumps(launches)}", flush=True)
-    if hist[0] == 0 or hist[1] == 0:
+    print(f"{coder} path kernel launches: {json.dumps(launches)}", flush=True)
+    if coder == "adaptive" and (hist[0] == 0 or hist[1] == 0):
         fail(f"expected both coder groups, got {hist.tolist()}")
-    missing = [k for k, v in launches.items() if v == 0]
+    missing = [k for k in NEEDS[coder] if launches[k] == 0]
     if missing:
-        fail(f"kernels not launched on the main path: {missing}")
-    return streams, ids, cads, data, launches
+        fail(f"kernels not launched on the {coder} path: {missing}")
+    if coder == "rice" and launches["K6"] != len(cfg.candidates()):
+        fail(f"K6 launched {launches['K6']} times, not once per candidate")
+    return data, launches
 
 
-def oracle_check(streams, ids, cads, data) -> None:
-    """Phase 4: the C++ oracle's adaptive frame == the port's frame."""
+def oracle_check(streams, ids, cads, frames) -> None:
+    """Phase 4: the C++ oracle's frame == the port's frame, per coder."""
     import numpy as np
 
     from dctpu_torch.format import read_raw, write_raw
@@ -237,29 +321,50 @@ def oracle_check(streams, ids, cads, data) -> None:
     res = subprocess.run(["make", "-C", str(ROOT / "oracle")],
                          capture_output=True, text=True)
     if res.returncode != 0:
-        print("oracle: could not be built here "
-              f"(make exit {res.returncode}): {res.stderr.strip()[-300:]}")
-        return
+        fail(f"oracle build failed (make exit {res.returncode}): "
+             f"{res.stderr.strip()[-300:]}")
     oracle = str(ROOT / "oracle" / "dcomp_oracle")
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         (tmp / "in.dcr").write_bytes(write_raw(streams, ids, cads))
-        t0 = time.perf_counter()
-        subprocess.run([oracle, "encode", str(tmp / "in.dcr"),
-                        str(tmp / "oracle.dcf"), "--coder", "adaptive"],
-                       check=True, capture_output=True)
-        t1 = time.perf_counter()
-        if (tmp / "oracle.dcf").read_bytes() != data:
-            fail("oracle adaptive frame differs from the port's frame")
-        (tmp / "port.dcf").write_bytes(data)
-        subprocess.run([oracle, "decode", str(tmp / "port.dcf"),
-                        str(tmp / "out.dcr")], check=True, capture_output=True)
-        out, _, _ = read_raw((tmp / "out.dcr").read_bytes())
-        if not all(np.array_equal(a, b) for a, b in zip(streams, out)):
-            fail("oracle does not decode the port's frame to the input")
-    print(f"oracle: adaptive frame byte-identical to the port's "
-          f"({len(data)} bytes, oracle encode {t1 - t0:.1f} s), oracle "
-          f"decodes the port's frame bit-exact")
+        for coder, data in frames.items():
+            t0 = time.perf_counter()
+            subprocess.run([oracle, "encode", str(tmp / "in.dcr"),
+                            str(tmp / "oracle.dcf"), "--coder", coder],
+                           check=True, capture_output=True)
+            t1 = time.perf_counter()
+            if (tmp / "oracle.dcf").read_bytes() != data:
+                fail(f"oracle {coder} frame differs from the port's frame")
+            (tmp / "port.dcf").write_bytes(data)
+            subprocess.run([oracle, "decode", str(tmp / "port.dcf"),
+                            str(tmp / "out.dcr")], check=True, capture_output=True)
+            out, _, _ = read_raw((tmp / "out.dcr").read_bytes())
+            if not all(np.array_equal(a, b) for a, b in zip(streams, out)):
+                fail(f"oracle does not decode the port's {coder} frame")
+            print(f"oracle: {coder} frame byte-identical to the port's "
+                  f"({len(data)} bytes, oracle encode {t1 - t0:.1f} s), oracle "
+                  f"decodes the port's frame bit-exact", flush=True)
+
+
+def cli_check() -> None:
+    """Phase 5: the port's CLI verifies a small DCR1 file on the card."""
+    from dctpu_torch.corpus import synth_corpus
+    from dctpu_torch.format import write_raw
+
+    streams, ids, cads = synth_corpus(4, 20000, seed=31, mixed_cadence=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        src = Path(tmp) / "in.dcr"
+        src.write_bytes(write_raw(streams, ids, cads))
+        res = subprocess.run(
+            [sys.executable, "-m", "dctpu_torch.cli.main", "verify", str(src),
+             "--coder", "rice"],
+            cwd=ROOT, capture_output=True, text=True, timeout=300,
+            env={**os.environ, "PYTHONPATH": str(ROOT)},
+        )
+    print(f"cli: verify --coder rice exit {res.returncode}: "
+          f"{res.stderr.strip()[-200:]}", flush=True)
+    if res.returncode != 0:
+        fail("the CLI's verify failed on the card")
 
 
 def main() -> int:
@@ -272,6 +377,7 @@ def main() -> int:
     if not (ROOT / "dctpu_torch").is_dir():
         fail(f"dctpu_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
+    from dctpu_torch.corpus import synth_corpus
     from dctpu_torch.kernels import _build
 
     smi = subprocess.run(
@@ -294,10 +400,21 @@ def main() -> int:
     print("kernels vs plain twins (tolerance: exact, max_abs_err 0):",
           flush=True)
     recs = check_kernels(dev)
-    streams, ids, cads, data, launches = main_path(dev)
+
+    streams, ids, cads = synth_corpus(
+        16, BENCH_BLOCKS * BENCH_LEN // 16, seed=123, mixed_cadence=True,
+        cumulative_frac=0.25,
+    )
+    frames, by_path = {}, {}
+    for coder in CODERS:
+        frames[coder], by_path[coder] = run_path(dev, coder, streams, ids, cads)
     for key, r in recs.items():
-        r["launches"] = launches[key]
-    oracle_check(streams, ids, cads, data)
+        # the count of the path this kernel was ported for: K1-K4 the
+        # adaptive path, K5a, K5b and K6 the rice path
+        r["launches"] = by_path["rice" if key in NEEDS["rice"] else "adaptive"][key]
+        r["launches_by_path"] = {c: by_path[c][key] for c in CODERS}
+    oracle_check(streams, ids, cads, frames)
+    cli_check()
 
     print(json.dumps({"kernels": list(recs.values())}))
     print(json.dumps({"ok": True, "device": {

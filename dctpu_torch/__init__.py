@@ -7,13 +7,18 @@ package imports torch and numpy and never jax or ``dctpu``.
 Layers, mirroring ``dctpu``:
   format/  — DCF1 frame and DCR1 raw serializers (host numpy copies)
   corpus/  — synthetic load-profile generator (copy)
-  codec/   — predictors, Rice math, adaptive encode/decode, host API
-  kernels/ — CUDA kernels K1-K4 (csrc/) with plain torch twins, and the
-             plain torch packer, unpacker and ragged copies
+  codec/   — predictors, Rice math, block encode/decode, host API, and
+             corpus-fit LPC tables (``select``, copy)
+  kernels/ — CUDA kernels K1-K6 (csrc/) with plain torch twins, and the
+             plain torch VERTICAL region math and ragged copies
   csrc/    — the CUDA C++ sources, built for sm_90a at first use
+  cli/     — encode / decode / verify (``python -m dctpu_torch.cli.main``)
 
-This slice covers ``CodecConfig(coder="adaptive")`` (the CLI default):
-``dctpu_torch.codec.api.compress`` and ``decompress``. The compile cache
+All three coders are ported: ``CodecConfig(coder="rice")`` (the default),
+``"vertical"`` and ``"adaptive"`` (the CLI default), through
+``dctpu_torch.codec.api.compress`` and ``decompress``. Not yet ported:
+the sharded and multi-process paths, the CLI's ``--sharded`` flag and
+``bench`` verb, and the reference's A/B kernel backends. The compile cache
 of ``dctpu/utils`` is JAX-only and has no counterpart.
 """
 

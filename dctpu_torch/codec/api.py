@@ -1,7 +1,8 @@
 """Host orchestration: numpy streams <-> device codec <-> DCF1 frames.
 
-The counterpart of ``dctpu/codec/api.py`` for the adaptive coder
-(``CodecConfig(coder="adaptive")``, the CLI default). Block planning and
+The counterpart of ``dctpu/codec/api.py`` for all three coders:
+``CodecConfig(coder="rice")`` (the default of ``CodecConfig()``),
+``"vertical"`` and ``"adaptive"`` (the CLI default). Block planning and
 frame assembly are host numpy; every per-sample stage runs on ``device``.
 The samples cross to the device once, the compact payload words cross
 back once; decode does the reverse.
@@ -26,7 +27,7 @@ import numpy as np
 import torch
 
 from dctpu_torch.codec.decode import decode_z, reconstruct
-from dctpu_torch.codec.encode import adaptive_select, emit_blocks
+from dctpu_torch.codec.encode import adaptive_select, emit_blocks, select_blocks
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import CODER_RICE, CODER_VERTICAL, HISTORY_LEN, LPC
 from dctpu_torch.format.frame import BlockHeaders, Frame, StreamDir, plan_blocks
@@ -34,6 +35,7 @@ from dctpu_torch.kernels import ragged
 from dctpu_torch.kernels.pack import padded_words
 
 _CODERS = ((CODER_RICE, "rice"), (CODER_VERTICAL, "vertical"))
+_CODER_ID = {name: gid for gid, name in _CODERS}
 
 
 # ------------------------------------------------------------ block building
@@ -152,14 +154,17 @@ def compress(
     device="cuda",
     stage_ms: dict | None = None,
 ) -> Frame:
-    """Adaptive per-block coder (FORMAT §4.1): select on the device, group
-    the blocks by coder, emit and compact each group, and interleave the
-    compact words back into block-table order on the device."""
-    cfg = cfg or CodecConfig(coder="adaptive")
-    if cfg.coder != "adaptive":
-        raise NotImplementedError(
-            f"dctpu_torch implements coder='adaptive' only, got {cfg.coder!r}"
-        )
+    """Streams -> DCF1 frame, with ``cfg`` (default ``CodecConfig()``, the
+    RICE coder, as in the reference).
+
+    Selection runs on the device: the (candidate, coder, k) per block for
+    coder="adaptive" (FORMAT §4.1), the (candidate, k) per block for
+    "rice" and "vertical". The blocks are grouped by coder, each group is
+    emitted and compacted, and the compact words are interleaved back into
+    block-table order on the device."""
+    cfg = cfg or CodecConfig()
+    if cfg.coder not in ("adaptive", *_CODER_ID):
+        raise ValueError(f"unknown coder {cfg.coder!r}")
     stage = _Stages(stage_ms, device)
     L = cfg.block_len
     x_h, n_h, hist_h, nb, first = build_blocks(streams, L)
@@ -168,7 +173,11 @@ def compress(
     with stage("upload"):
         x, n, hist = (torch.from_numpy(a).to(device) for a in (x_h, n_h, hist_h))
     with stage("select"):
-        choice, coder, kk = adaptive_select(x, n, hist, cfg)
+        if cfg.coder == "adaptive":
+            choice, coder, kk = adaptive_select(x, n, hist, cfg)
+        else:
+            choice, kk = select_blocks(x, n, hist, cfg)
+            coder = torch.full_like(choice, _CODER_ID[cfg.coder])
     coder_h = coder.cpu().numpy()
 
     bit_len = torch.zeros(B, dtype=torch.int64, device=device)
@@ -248,6 +257,7 @@ def _check_block_table(frame: Frame) -> None:
         "predictor id": hb.predictor.max() > LPC,
         "LPC table index": lpc.any() and hb.table_idx[lpc].max() >= len(frame.tables),
         "valid count n": hb.n.max() > L,
+        "RICE k": rice.any() and hb.k[rice].max() > 30,
         "payload size": off[-1] > frame.payload_words.size,
         "RICE bit_len": rice.any() and np.diff(off)[rice].max() > padded_words(L),
     }

@@ -1,11 +1,17 @@
-"""Adaptive block encoder: selection (FORMAT §4.1) and per-coder emission.
+"""Block encoder: selection (FORMAT §4, §4.1) and per-coder emission.
 
-The counterpart of the adaptive half of ``dctpu/codec/encode.py``.
-Selection runs the exact totals kernels: K1 for DELTA and DOUBLE_DELTA,
-read straight from the samples, and K2 for each LPC candidate's zigzag
-values, as the TPU default path does. Emission derives the winner's
+The counterpart of ``dctpu/codec/encode.py``, split so that each stage can
+be timed: the reference's ``encode_blocks`` is :func:`select_blocks` (the
+single-coder selection) then :func:`emit_blocks`; its adaptive pair is
+:func:`adaptive_select` then :func:`emit_blocks`.
+
+Selection runs the exact totals kernels. Adaptive: K1 for DELTA and
+DOUBLE_DELTA, read straight from the samples, and K2 for each LPC
+candidate's zigzag values, as the TPU default path does. coder="rice": K6
+per candidate (``rice.choose_k_auto``). coder="vertical": the bit-length
+cost, plain torch (XLA on the TPU too). Emission derives the winner's
 zigzag values and runs the coder of the group: K3 plus the region
-assembly for VERTICAL, codewords plus the packer for RICE.
+assembly for VERTICAL, K5a for RICE.
 
 PyTorch runs eagerly, so there is nothing to compile and no chunking: a
 batch of any size runs in one pass.
@@ -20,10 +26,10 @@ import torch
 from dctpu_torch.codec import predict, rice
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC
-from dctpu_torch.kernels.pack import pack
+from dctpu_torch.kernels.pack import rice_pack
 from dctpu_torch.kernels.select_bp import adaptive_totals_bp, adaptive_totals_xbp
 from dctpu_torch.kernels.vemit import vertical_emit
-from dctpu_torch.kernels.vertical import assemble_rows
+from dctpu_torch.kernels.vertical import assemble_rows, vertical_selection_cost
 
 
 def candidate_z(x, history, cfg: CodecConfig, ci: int) -> torch.Tensor:
@@ -31,6 +37,46 @@ def candidate_z(x, history, cfg: CodecConfig, ci: int) -> torch.Tensor:
     pred, ti = cfg.candidates()[ci]
     coeffs = cfg.lpc_tables[ti].coeffs if pred == LPC else None
     return rice.zigzag(predict.residuals_for_candidate(x, history, pred, coeffs))
+
+
+def _first_min(cost: torch.Tensor) -> torch.Tensor:
+    """[C, B] -> [B] index of the first minimum over C (the normative
+    candidate-order tie-break), as one packed cost * C + c minimum."""
+    C = cost.shape[0]
+    ax = torch.arange(C, device=cost.device)[:, None]
+    return (cost.to(torch.int64) * C + ax).min(0).values % C
+
+
+def select_blocks(
+    x: torch.Tensor,        # [B, L] int32
+    n: torch.Tensor,        # [B] int32
+    history: torch.Tensor,  # [B, 4] int32
+    cfg: CodecConfig,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Single-coder selection (cfg.coder "rice" or "vertical"), the first
+    half of the reference's encode_blocks. Returns (choice, k), each [B]
+    int32; k is 0 for VERTICAL.
+
+    RICE: the exact (k, bits) per candidate from K6, then the candidate
+    with the fewest bits. VERTICAL: the candidate with the smallest sum of
+    bit lengths."""
+    L = x.shape[1]
+    C = len(cfg.candidates())
+    if cfg.coder == "vertical":
+        valid = torch.arange(L, device=x.device)[None, :] < n.to(torch.int64)[:, None]
+        cost = torch.stack([
+            vertical_selection_cost(candidate_z(x, history, cfg, ci), valid)
+            for ci in range(C)
+        ])
+        choice = _first_min(cost)
+        return choice.to(torch.int32), torch.zeros_like(choice, dtype=torch.int32)
+    ks, bits = zip(*(
+        rice.choose_k_auto(candidate_z(x, history, cfg, ci), n, L, cfg.k_max)
+        for ci in range(C)
+    ))
+    choice = _first_min(torch.stack(bits))
+    k = torch.stack(ks).gather(0, choice[None, :])[0]
+    return choice.to(torch.int32), k.to(torch.int32)
 
 
 def adaptive_select(
@@ -44,12 +90,10 @@ def adaptive_select(
     Returns (choice, coder 0=RICE/1=VERTICAL, k), each [B] int32. The first
     minimum in the option order c0-RICE, c0-VERT, c1-RICE, ... wins: the
     minimum of the packed key words * (2C) + option."""
-    B, L = x.shape
-    cands = cfg.candidates()
-    C = len(cands)
+    L = x.shape[1]
     shift = None
     ks, rws, vws = [], [], []
-    for ci, (pred, _) in enumerate(cands):
+    for ci, (pred, _) in enumerate(cfg.candidates()):
         if pred in (DELTA, DOUBLE_DELTA):
             if shift is None:
                 shift = adaptive_totals_xbp(x, history, n, L, cfg.k_max)
@@ -63,11 +107,9 @@ def adaptive_select(
         ks.append(k_c)
         rws.append((bits_c + 31) // 32)
         vws.append(vword.to(torch.int64))
-    opts = torch.stack(
+    o = _first_min(torch.stack(
         [w for pair in zip(rws, vws) for w in pair]
-    )  # [2C, B]: c0-RICE, c0-VERT, c1-RICE, ...
-    opt_ax = torch.arange(2 * C, device=x.device)[:, None]
-    o = (opts * (2 * C) + opt_ax).min(0).values % (2 * C)
+    ))  # over 2C options: c0-RICE, c0-VERT, c1-RICE, ...
     choice = o >> 1
     coder = o & 1
     k = torch.stack(ks).gather(0, choice[None, :])[0]
@@ -107,6 +149,4 @@ def emit_blocks(
             z[rows] = candidate_z(x[rows], history[rows], cfg, ci)
     if coder == "vertical":
         return encode_vertical(z, n, L)
-    valid = torch.arange(L, device=x.device)[None, :] < n.to(torch.int64)[:, None]
-    code, length = rice.codewords(z, k.to(torch.int64)[:, None])
-    return pack(code, length, valid, L)
+    return rice_pack(z, k, n, L)

@@ -27,6 +27,12 @@ def unzigzag(z: torch.Tensor) -> torch.Tensor:
     return to_i32((u >> 1) ^ -(u & 1))
 
 
+def code_lengths(z: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
+    """Codeword bit lengths, int64; k broadcasts against z."""
+    q = to_u32(z) >> k.to(torch.int64)
+    return torch.where(q >= ESCAPE_Q, MAX_CODE_BITS, q + 1 + k.to(torch.int64))
+
+
 def rice_totals(z: torch.Tensor, n: torch.Tensor, k_max: int) -> torch.Tensor:
     """Exact RICE coded bits per block and k, [B, k_max + 1] int64.
 
@@ -60,6 +66,18 @@ def choose_k_planes(
     return best_k(rice_totals(z, n, k_max))
 
 
+def choose_k_auto(
+    z: torch.Tensor, n: torch.Tensor, block_len: int, k_max: int
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact per-block (k, bits) of the coder="rice" encode, from K6
+    (``kernels/rice_totals.py``): the kernel on a CUDA device, its plain
+    twin on the CPU. Raises ValueError for k_max > 24, where the
+    reference asserts."""
+    from dctpu_torch.kernels.rice_totals import rice_totals as k6
+
+    return best_k(k6(z, n, block_len, k_max))
+
+
 def codewords(z: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(code int64, length int64) per sample; k broadcasts against z.
 
@@ -74,5 +92,4 @@ def codewords(z: torch.Tensor, k: torch.Tensor) -> Tuple[torch.Tensor, torch.Ten
     qe = torch.clamp(q, max=ESCAPE_Q - 1)
     normal = ((1 << qe) - 1) | ((u & ((1 << k) - 1)) << (qe + 1))
     code = torch.where(esc, 0xFFFF | (u << 16), normal)
-    length = torch.where(esc, MAX_CODE_BITS, q + 1 + k)
-    return code, length
+    return code, code_lengths(z, k)

@@ -1,16 +1,20 @@
-// K1 and K2: exact adaptive-selection totals (FORMAT §4.1) per block.
+// K1, K2 and K6: exact selection totals (FORMAT §4, §4.1) per block.
 //
 // Replaces dctpu/kernels/select_bp.py _xbp_kernel (K1: DELTA and
 // DOUBLE_DELTA candidates derived from raw samples) and _bp_kernel (K2: one
-// candidate's zigzag values). For each candidate and block the output row
-// holds the exact RICE coded-bit total for every k in [0, k_max] and, last,
-// the exact VERTICAL word count (the width rule summed over the block's
-// sub-block rows).
+// candidate's zigzag values), and dctpu/kernels/select_pallas.py
+// _totals_kernel (K6: K2's RICE half alone, for the coder="rice" k
+// choice). For each candidate and block the output row holds the exact RICE
+// coded-bit total for every k in [0, k_max] and, last (K1 and K2 only), the
+// exact VERTICAL word count (the width rule summed over the block's
+// sub-block rows). The three share one kernel template: VERT switches the
+// VERTICAL word count on.
 //
 // What bounds it on the card: one read of the block (16 KiB at
 // block_len 4096) against ~4 integer ops per sample and k for the RICE
 // totals, and 32 warp votes per row and candidate for the exceed table.
-// It is compute-bound, not memory-bound. Design: one thread block of 128
+// It is compute-bound, not memory-bound (K6 as well: ~4 ops per sample
+// and k against one 4-byte read per sample). Design: one thread block of 128
 // threads per codec block walks the block's rows, so a block's totals are
 // reduced inside the thread block (no atomics, no second pass). The RICE
 // totals are summed per sample from the definition
@@ -20,7 +24,7 @@
 
 namespace dct {
 
-template <int NC, bool FROM_X>
+template <int NC, bool FROM_X, bool VERT>
 __global__ void __launch_bounds__(kSub)
 select_totals_kernel(const int32_t* __restrict__ src,
                      const int32_t* __restrict__ hist,
@@ -72,7 +76,6 @@ select_totals_kernel(const int32_t* __restrict__ src,
     } else {
       z[0] = valid ? static_cast<uint32_t>(row[i]) : 0u;
     }
-    const int pw = plane_words(s, block_len);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       if (valid) {
@@ -84,8 +87,11 @@ select_totals_kernel(const int32_t* __restrict__ src,
           }
         }
       }
-      exceed_table(bit_length(z[c]), part, e_sh);
-      if (warp == 0) vwords[c] += select_width(e_sh, pw).words;
+      if constexpr (VERT) {
+        exceed_table(bit_length(z[c]), part, e_sh);
+        if (warp == 0)
+          vwords[c] += select_width(e_sh, plane_words(s, block_len)).words;
+      }
     }
   }
 
@@ -97,7 +103,7 @@ select_totals_kernel(const int32_t* __restrict__ src,
       if (lane == 0) red[warp][c][k] = v;
     }
   __syncthreads();
-  const int width = k_max + 2;
+  const int width = k_max + (VERT ? 2 : 1);
   int32_t* o = out + static_cast<size_t>(blk) * NC * width;
   if (tid < NC * (k_max + 1)) {
     const int c = tid / (k_max + 1);
@@ -107,7 +113,7 @@ select_totals_kernel(const int32_t* __restrict__ src,
     for (int w = 0; w < kWarps; ++w) t += red[w][c][k];
     o[c * width + k] = t;
   }
-  if (tid == 0) {
+  if (VERT && tid == 0) {
 #pragma unroll
     for (int c = 0; c < NC; ++c) o[c * width + k_max + 1] = vwords[c];
   }
@@ -120,7 +126,7 @@ select_totals_kernel(const int32_t* __restrict__ src,
 extern "C" int dct_select_xbp(const void* x, const void* hist, const void* n,
                               void* out, int num_blocks, int block_len,
                               int k_max, void* stream) {
-  dct::select_totals_kernel<2, true>
+  dct::select_totals_kernel<2, true, true>
       <<<num_blocks, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(x), static_cast<const int32_t*>(hist),
           static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
@@ -132,7 +138,19 @@ extern "C" int dct_select_xbp(const void* x, const void* hist, const void* n,
 extern "C" int dct_select_bp(const void* z, const void* n, void* out,
                              int num_blocks, int block_len, int k_max,
                              void* stream) {
-  dct::select_totals_kernel<1, false>
+  dct::select_totals_kernel<1, false, true>
+      <<<num_blocks, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(z), nullptr,
+          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
+          block_len, k_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K6: z [B, L] zigzag values (int32 bit patterns) -> out [B, k_max + 1].
+extern "C" int dct_rice_totals(const void* z, const void* n, void* out,
+                               int num_blocks, int block_len, int k_max,
+                               void* stream) {
+  dct::select_totals_kernel<1, false, false>
       <<<num_blocks, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(z), nullptr,
           static_cast<const int32_t*>(n), static_cast<int32_t*>(out),

@@ -1,8 +1,11 @@
 """Hand-written CUDA kernels (``dctpu_torch/csrc``) behind torch wrappers,
 and the plain-torch stages around them.
 
-  select_bp  K1, K2  exact adaptive-selection totals
-  vemit      K3      VERTICAL emit analysis
-  vdec       K4      VERTICAL decode
-  vertical, pack, unpack, ragged: plain torch (XLA code on the TPU)
+  select_bp    K1, K2  exact adaptive-selection totals
+  vemit        K3      VERTICAL emit analysis
+  vdec         K4      VERTICAL decode
+  pack         K5a     RICE bit packer
+  unpack       K5b     RICE bit unpacker
+  rice_totals  K6      exact RICE totals per k (coder="rice" selection)
+  vertical, ragged: plain torch (XLA code on the TPU)
 """

@@ -1,11 +1,12 @@
 """Build the port's CUDA kernels at first use and bind them with ctypes.
 
-``dctpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` (Hopper) into
-one shared library with a plain C interface, under ``build/dctpu_torch/``
-at the repository root, keyed by a hash of the sources and flags: a
-changed source rebuilds, an unchanged one loads the cached library. Each C
-entry point launches on the stream it is given and returns
-``cudaGetLastError()``; :func:`check` turns a non-zero code into an error.
+``dctpu_torch/csrc/*.cu`` compile with ``nvcc`` for ``sm_90a`` (Hopper), one
+``nvcc`` per source, all started together, and link into one shared
+library with a plain C interface, under ``build/dctpu_torch/`` at the
+repository root, keyed by a hash of the sources and flags: a changed source
+rebuilds, an unchanged one loads the cached library. Each C entry point
+launches on the stream it is given and returns ``cudaGetLastError()``;
+:func:`check` turns a non-zero code into an error.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines that have neither ``nvcc`` nor a card.
@@ -25,11 +26,11 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dctpu_torch"
-SOURCES = ("select.cu", "vemit.cu", "vdec.cu")
+SOURCES = ("select.cu", "vemit.cu", "vdec.cu", "pack.cu", "unpack.cu")
 HEADERS = ("bitplane.cuh",)
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",
+    *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
 )
 
 _P = ctypes.c_void_p
@@ -40,6 +41,9 @@ SIGNATURES = {
     "dct_select_bp": (_P, _P, _P, _I, _I, _I, _P),
     "dct_vemit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dct_vdec": (_P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_unpack": (_P, _P, _P, _P, _I, _I, _I, _P),
 }
 
 
@@ -63,15 +67,30 @@ def library_path() -> Path:
     if lib.exists():
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libdctpu_kernels.{os.getpid()}.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *(str(CSRC / s) for s in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({res.returncode}):\n{res.stdout}{res.stderr}"
+    nvcc = _nvcc()
+    objs = [out_dir / f"{Path(src).stem}.{os.getpid()}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen(
+            [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         )
+        for src, obj in zip(SOURCES, objs)
+    ]
+    log = [f"== {src}\n{p.communicate()[0]}" for src, p in zip(SOURCES, procs)]
+    ok = all(p.returncode == 0 for p in procs)
+    tmp = out_dir / f"libdctpu_kernels.{os.getpid()}.so"
+    if ok:
+        res = subprocess.run(
+            [nvcc, *ARCH, "-shared", "-o", str(tmp), *map(str, objs)],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        log.append(f"== link\n{res.stdout}")
+        ok = res.returncode == 0
+    (out_dir / "build.log").write_text("".join(log))
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if not ok:
+        raise RuntimeError("nvcc failed:\n" + "".join(log))
     os.replace(tmp, lib)
     return lib
 

@@ -1,8 +1,12 @@
-"""RICE bit packer in plain torch: codewords -> dense u32 payload rows.
+"""K5a: RICE bit packer, zigzag values -> dense u32 payload rows.
 
-The ``dctpu/kernels/pack_xla.py`` formulation. The TPU ran this group as
-XLA code, not a Pallas kernel (``dctpu/kernels/api.py``), so it stays
-plain torch here:
+The counterpart of ``dctpu/kernels/attic/pack_pallas.py`` (``pack_pallas``,
+with the codewords, sync table and bit_len its wrapper formed in XLA
+around the kernel). The CUDA kernel is in ``dctpu_torch/csrc/pack.cu``;
+it forms each codeword itself from z and k.
+
+The plain twin is ``rice.codewords`` followed by :func:`pack`, the
+``dctpu/kernels/pack_xla.py`` formulation:
 
   1. exclusive prefix sum of the code lengths: every sample's bit offset;
   2. per-128-sample length sums: the payload's leading sync table;
@@ -10,6 +14,10 @@ plain torch here:
      so it splits into 3 word contributions;
   4. contributions of different codewords hold disjoint bits, so an
      ``index_add_`` into int64 words equals the OR.
+
+``rice_pack`` runs the twin for tensors on the CPU and launches the kernel
+for tensors on a CUDA device; ``rice_pack.launches`` counts the kernel
+launches.
 """
 
 from __future__ import annotations
@@ -19,12 +27,14 @@ from typing import Tuple
 import torch
 
 from dctpu_torch._bits import MASK32, to_i32
+from dctpu_torch.codec.rice import codewords
 from dctpu_torch.constants import (
     MAX_CODE_BITS,
     SUB_BLOCK,
     subs_per_block,
     sync_words,
 )
+from dctpu_torch.kernels import _build
 
 
 def padded_words(block_len: int) -> int:
@@ -75,3 +85,45 @@ def pack(
         bits.index_add_(0, base + j, v.reshape(-1))
     payload = torch.cat([sync, bits[: B * Wbits].reshape(B, Wbits)], dim=1)
     return to_i32(payload), bit_len
+
+
+def rice_pack_plain(z, k, n, block_len: int):
+    """Plain twin of K5a: the codewords, then :func:`pack`."""
+    L = z.shape[1]
+    valid = torch.arange(L, device=z.device)[None, :] < n.to(torch.int64)[:, None]
+    code, length = codewords(z, k.to(torch.int64)[:, None])
+    return pack(code, length, valid, block_len)
+
+
+def rice_pack(
+    z: torch.Tensor,  # [B, L] int32 zigzag bit patterns (garbage past n)
+    k: torch.Tensor,  # [B] Rice k, in [0, 30]
+    n: torch.Tensor,  # [B] valid counts
+    block_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5a: (payload [B, padded_words(L)] int32 bit patterns incl. sync
+    table, bit_len [B] int64) -- the contract of :func:`pack`."""
+    if z.device.type == "cpu":
+        return rice_pack_plain(z, k, n, block_len)
+    if z.device.type != "cuda":
+        raise ValueError(f"rice_pack: unsupported device {z.device}")
+    k = k.to(torch.int32).contiguous()
+    n = n.to(torch.int32).contiguous()
+    _build.check_tensors("rice_pack", z, k, n)
+    B, L = z.shape
+    if L != block_len or k.shape != (B,) or n.shape != (B,):
+        raise ValueError("rice_pack: expects z [B, block_len], k [B], n [B]")
+    W = padded_words(block_len)
+    payload = torch.empty((B, W), dtype=torch.int32, device=z.device)
+    bit_len = torch.empty(B, dtype=torch.int64, device=z.device)
+    if B:
+        err = _build.library().dct_rice_pack(
+            z.data_ptr(), k.data_ptr(), n.data_ptr(), payload.data_ptr(),
+            bit_len.data_ptr(), B, L, W, _build.stream_of(z),
+        )
+        _build.check(err, "dct_rice_pack")
+        rice_pack.launches += 1
+    return payload, bit_len
+
+
+rice_pack.launches = 0

@@ -1,11 +1,20 @@
-"""RICE bit unpacker in plain torch: u32 payload rows -> zigzag values.
+"""K5b: RICE bit unpacker, staged u32 payload rows -> zigzag values.
 
-The ``dctpu/kernels/unpack_xla.py`` formulation. The TPU ran this group as
-XLA code, not a Pallas kernel (``dctpu/kernels/api.py``), so it stays
-plain torch here. The sync table gives every 128-sample sub-block its
-starting bit offset, so the decode runs 128 steps with all B*S sub-blocks
-active per step: each step reads a 64-bit window at every sub-block's bit
+The counterpart of ``dctpu/kernels/attic/unpack_pallas.py``
+(``unpack_pallas``). Its rows are the port's RICE staging,
+``ragged.pad_payload(..., padded_words(L) + 2)``: the TPU kernel's
+``stage_rice_scan`` layout was a Mosaic staging choice and is not carried
+over. The CUDA kernel is in ``dctpu_torch/csrc/unpack.cu``.
+
+The plain twin :func:`unpack` is the ``dctpu/kernels/unpack_xla.py``
+formulation. The sync table gives every 128-sample sub-block its starting
+bit offset, so the decode runs 128 steps with all B*S sub-blocks active
+per step: each step reads a 64-bit window at every sub-block's bit
 position, counts the unary prefix, and extracts one codeword.
+
+``rice_unpack`` runs the twin for tensors on the CPU and launches the
+kernel for tensors on a CUDA device; ``rice_unpack.launches`` counts the
+kernel launches.
 """
 
 from __future__ import annotations
@@ -21,6 +30,8 @@ from dctpu_torch.constants import (
     subs_per_block,
     sync_words,
 )
+from dctpu_torch.kernels import _build
+from dctpu_torch.kernels.pack import padded_words
 
 
 def _funnel(lo: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -82,3 +93,37 @@ def unpack(
         length = torch.where(esc, MAX_CODE_BITS, q + 1 + kk)
         p = p + torch.where(active, length, 0)
     return to_i32(out.reshape(B, S * T)[:, :L])
+
+
+def rice_unpack(
+    payload: torch.Tensor,  # [B, padded_words(L) + 2] int32 bit patterns
+    k: torch.Tensor,        # [B] Rice k, in [0, 30]
+    n: torch.Tensor,        # [B] valid samples
+    block_len: int,
+) -> torch.Tensor:
+    """K5b: z [B, block_len] zigzag values as int32 bit patterns (zeros
+    past n) -- the contract of :func:`unpack`."""
+    if payload.device.type == "cpu":
+        return unpack(payload, k, n, block_len)
+    if payload.device.type != "cuda":
+        raise ValueError(f"rice_unpack: unsupported device {payload.device}")
+    k = k.to(torch.int32).contiguous()
+    n = n.to(torch.int32).contiguous()
+    _build.check_tensors("rice_unpack", payload, k, n)
+    B, W = payload.shape
+    if W != padded_words(block_len) + 2 or k.shape != (B,) or n.shape != (B,):
+        raise ValueError(
+            "rice_unpack: expects payload [B, padded_words(L) + 2], k [B], n [B]"
+        )
+    z = torch.empty((B, block_len), dtype=torch.int32, device=payload.device)
+    if B:
+        err = _build.library().dct_rice_unpack(
+            payload.data_ptr(), k.data_ptr(), n.data_ptr(), z.data_ptr(), B,
+            block_len, W, _build.stream_of(payload),
+        )
+        _build.check(err, "dct_rice_unpack")
+        rice_unpack.launches += 1
+    return z
+
+
+rice_unpack.launches = 0

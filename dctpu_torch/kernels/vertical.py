@@ -1,7 +1,8 @@
 """VERTICAL coder (docs/FORMAT.md §2.2) in plain torch: the shared math.
 
 The counterpart of ``dctpu/kernels/vertical_xla.py``: sub-block geometry,
-the exceed table and width rule, the exact word count used by selection,
+the exceed table and width rule, the exact word count used by adaptive
+selection, the bit-length cost used by coder="vertical" selection,
 the region assembly after the emit kernel, and the sync-entry parse.
 
 Layout of a staged payload row (the contract of the decode kernel, K4):
@@ -80,6 +81,13 @@ def select_width(E: torch.Tensor, pw: torch.Tensor):
     n_exc = E.gather(1, b[:, None])[:, 0]
     e = torch.where(n_exc > 0, blmax[:, 0] - b, 0)
     return b, key >> 6, n_exc, e
+
+
+def vertical_selection_cost(z: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """coder="vertical" predictor-selection proxy (FORMAT §2.2): the sum of
+    the bit lengths of the valid z, [B] int64. One dense pass (XLA on the
+    TPU too)."""
+    return torch.where(valid, bitlen(z), 0).sum(-1)
 
 
 def vertical_total_words(

@@ -26,7 +26,7 @@ from dctpu.format import write_frame as ref_write_frame
 from dctpu_torch.codec import api
 from dctpu_torch.config import CodecConfig, from_reference
 from dctpu_torch.format import read_frame, write_frame
-from dctpu_torch.kernels import select_bp, vdec, vemit
+from dctpu_torch.kernels import pack, rice_totals, select_bp, unpack, vdec, vemit
 from tests.conftest import stream_cases
 from tests.test_adaptive import _mixed_streams
 
@@ -48,9 +48,9 @@ def _inputs():
     }
 
 
-def frames(block_len):
+def frames(block_len, coder="adaptive", **fields):
     """name -> (streams, reference bytes, scalar bytes, port bytes)."""
-    ref_cfg = RefConfig(block_len=block_len, coder="adaptive")
+    ref_cfg = RefConfig(block_len=block_len, coder=coder, **fields)
     cfg = from_reference(dataclasses.asdict(ref_cfg))
     out = {}
     for name, (streams, ids, cads) in _inputs().items():
@@ -153,8 +153,10 @@ def test_stage_times_and_config_checks():
     assert {"select", "interleave"} <= set(enc_ms)
     assert {"reconstruct", "download"} <= set(dec_ms)
     assert all(v >= 0 for v in [*enc_ms.values(), *dec_ms.values()])
-    with pytest.raises(NotImplementedError):
-        api.compress(streams, CodecConfig(coder="rice"), device="cpu")
+    with pytest.raises(ValueError, match="unknown coder"):
+        api.compress(streams, CodecConfig(coder="huffman"), device="cpu")
+    with pytest.raises(ValueError, match="k_max"):
+        api.compress(streams, CodecConfig(coder="rice", k_max=25), device="cpu")
 
 
 def test_empty_input_round_trip():
@@ -197,6 +199,7 @@ def test_decompress_rejects_malformed_block_tables():
         _mutated(frame, table_idx=(lpc, len(frame.tables))),
         _mutated(frame, n=(0, 513)),
         _mutated(frame, bit_len=(rice, 10**6)),
+        _mutated(frame, k=(rice, 31)),
         _mutated(frame, payload_words=(vert_sync, 40)),  # sub 0: b = 40
     ]
     for f in bad:
@@ -210,11 +213,15 @@ def test_wrappers_refuse_other_devices():
     n = torch.zeros(2, dtype=torch.int32, device="meta")
     h = torch.zeros((2, 4), dtype=torch.int32, device="meta")
     rows = torch.zeros((2, 1 + 2 * 192), dtype=torch.int32, device="meta")
+    rice_rows = torch.zeros((2, 1 + 384 + 2), dtype=torch.int32, device="meta")
     calls = [
         lambda: select_bp.adaptive_totals_bp(z, n, 256, 24),
         lambda: select_bp.adaptive_totals_xbp(z, h, n, 256, 24),
         lambda: vemit.vertical_emit(z, n, 256),
         lambda: vdec.decode_vertical(rows, n, 256),
+        lambda: rice_totals.rice_totals(z, n, 256, 24),
+        lambda: pack.rice_pack(z, n, n, 256),
+        lambda: unpack.rice_unpack(rice_rows, n, n, 256),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
@@ -225,6 +232,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "import dctpu_torch.codec.api, dctpu_torch.kernels.vdec, chip_smoke\n"
+        "import dctpu_torch.cli.main, dctpu_torch.codec.select\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dctpu' or m.startswith('dctpu.')]\n"
         "assert not bad, bad\n"

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K4 against their plain twins, on the card.
+"""The CUDA kernels K1-K6 against their plain twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -15,7 +15,7 @@ from dctpu_torch.codec import api
 from dctpu_torch.config import CodecConfig, LpcTable
 from dctpu_torch.corpus import synth_corpus
 from dctpu_torch.format import read_frame, write_frame
-from dctpu_torch.kernels import select_bp, vdec, vemit
+from dctpu_torch.kernels import pack, rice_totals, select_bp, unpack, vdec, vemit
 from dctpu_torch.kernels.vertical import assemble_rows
 
 pytestmark = pytest.mark.cuda
@@ -41,7 +41,8 @@ def _inputs(L, seed, B=40):
     n[-1] = max(1, L - 57)
     n[-2] = 0
     n[3] = min(L, 128)
-    return (torch.from_numpy(a) for a in (z.view(np.int32), x, h, n))
+    k = (np.arange(B) % 28).astype(np.int32)
+    return (torch.from_numpy(a) for a in (z.view(np.int32), x, h, n, k))
 
 
 def _same(got, want):
@@ -51,7 +52,7 @@ def _same(got, want):
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129])
 def test_kernels_match_twins_on_card(cuda, L):
-    z, x, h, n = (t.to(cuda) for t in _inputs(L, 7))
+    z, x, h, n, _ = (t.to(cuda) for t in _inputs(L, 7))
     _same(select_bp.adaptive_totals_xbp(x, h, n, L, 24),
           select_bp.adaptive_totals_xbp_plain(x, h, n, L, 24))
     _same(select_bp.adaptive_totals_bp(z, n, L, 24),
@@ -62,6 +63,18 @@ def test_kernels_match_twins_on_card(cuda, L):
     rows = assemble_rows(planes, b, n_exc, e, pos_words, vals, L)
     _same((vdec.decode_vertical(rows, n, L),),
           (vdec.decode_vertical_plain(rows, n, L),))
+
+
+@pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
+def test_rice_kernels_match_twins_on_card(cuda, L):
+    """K6, K5a and K5b; 12000 takes K5a's device-memory row path."""
+    z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 9))
+    _same((rice_totals.rice_totals(z, n, L, 24),),
+          (rice_totals.rice_totals_plain(z, n, L, 24),))
+    packed = pack.rice_pack(z, k, n, L)
+    _same(packed, pack.rice_pack_plain(z, k, n, L))
+    rows = torch.nn.functional.pad(packed[0], (0, 2))
+    _same((unpack.rice_unpack(rows, k, n, L),), (unpack.unpack(rows, k, n, L),))
 
 
 CONFIGS = {
@@ -75,6 +88,10 @@ CONFIGS = {
             LpcTable(4, (2**31 - 1, -(2**31), 2**30, -5)),
         ),
     ),
+    "rice": CodecConfig(),
+    "rice_L300_delta": CodecConfig(block_len=300, predictors=(0,), coder="rice"),
+    "vertical": CodecConfig(coder="vertical"),
+    "vertical_L1000": CodecConfig(block_len=1000, coder="vertical"),
 }
 
 
