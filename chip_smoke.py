@@ -5,8 +5,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 
   1. prints the card (nvidia-smi name and power limit) and builds the CUDA
      kernels from dctpu_torch/csrc (one nvcc per source, in parallel);
-  2. holds each kernel K1-K4, K5a, K5b and K6 against its plain torch twin
-     on the card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
+  2. holds each kernel K1-K4, K5a, K5b and K6-K9 against its plain torch
+     twin on the card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
      (block_len % 128 != 0) and 32 x 12000 (rows too large for K5a's
      shared-memory path), with edge rows, and times both at 8192 x 4096
      with CUDA events beside each kernel's bound;
@@ -15,7 +15,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      x 4096 int32 = 128 MiB, resident on the card), each with the launch
      counters set to 0 just before it and read just after: every round
      trip bit-exact, every kernel of each path launched (K6 once per
-     candidate on the rice path);
+     candidate on the rice path); then, on the same corpus, the adaptive
+     selection under backend="reduce" (K7 once per candidate, K1 and K2
+     never; equal to the default selection) and the adaptive and vertical
+     round trips under backend="pallas" (K9 and K8 in place of K3; frames
+     byte-identical to the default ones);
   4. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
      port's frame back to the input;
@@ -124,11 +128,14 @@ def work(key, B, L, n, b, rows_words):
     integer work per valid sample that the function needs: 4 per (sample,
     candidate, k) for the RICE totals (shift, compare, select, add), 32 per
     (sample, candidate) for the VERTICAL exceed table, 32 for K3's bit
-    planes, 3 per decoded plane bit for K4, and ~20 per codeword for the
-    RICE pack (codeword, scan, ORs) and unpack (window, count, extract)."""
+    planes, 3 per decoded plane bit for K4, ~20 per codeword for the
+    RICE pack (codeword, scan, ORs) and unpack (window, count, extract),
+    4 per sub-block word for K8 (shift, compare, vote, rank) and 32 per
+    word for K9 (one vote per plane)."""
     v = int(n.clamp(0, L).sum())
     K1 = K_MAX + 1
-    sub_bytes = B * -(-L // 128) * 4
+    R = B * -(-L // 128)
+    sub_bytes = R * 4
     return {
         "K1": (4 * B * L + 16 * B + 4 * B + 8 * B * (K1 + 1), v * 2 * (4 * K1 + 32)),
         "K2": (4 * B * L + 4 * B + 4 * B * (K1 + 1), v * (4 * K1 + 32)),
@@ -137,6 +144,9 @@ def work(key, B, L, n, b, rows_words):
         "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
         "K5b": (4 * rows_words["K5b"] + 8 * B + 4 * B * L, 20 * v),
         "K6": (4 * B * L + 4 * B + 4 * B * K1, v * 4 * K1),
+        "K7": (4 * B * L + 4 * B + 4 * B * (K1 + 1), v * (4 * K1 + 32)),
+        "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
+        "K9": (sub_bytes * 128 * 2, 32 * 128 * R),
     }[key]
 
 
@@ -155,6 +165,12 @@ RECS = {
             "dctpu/kernels/attic/unpack_pallas.py:56"),
     "K6": ("K6 rice_totals", "dctpu_torch/csrc/select.cu",
            "dctpu/kernels/select_pallas.py:72"),
+    "K7": ("K7 select_reduce", "dctpu_torch/csrc/select.cu",
+           "dctpu/kernels/select_pallas.py:79"),
+    "K8": ("K8 exc_extract", "dctpu_torch/csrc/exc.cu",
+           "dctpu/kernels/vertical_pallas.py:43"),
+    "K9": ("K9 bit_transpose", "dctpu_torch/csrc/transpose.cu",
+           "dctpu/kernels/transpose_pallas.py:83"),
 }
 
 
@@ -162,6 +178,8 @@ def check_kernels(dev):
     """Phase 2: each kernel against its twin; returns per-kernel records."""
     import torch
 
+    from dctpu_torch._bits import to_i32
+    from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
     from dctpu_torch.kernels.pack import rice_pack, rice_pack_plain
     from dctpu_torch.kernels.rice_totals import rice_totals, rice_totals_plain
     from dctpu_torch.kernels.select_bp import (
@@ -170,10 +188,18 @@ def check_kernels(dev):
         adaptive_totals_xbp,
         adaptive_totals_xbp_plain,
     )
+    from dctpu_torch.kernels.select_reduce import (
+        adaptive_totals_reduce,
+        adaptive_totals_reduce_plain,
+    )
+    from dctpu_torch.kernels.transpose import (
+        grouped_bit_transpose32,
+        grouped_bit_transpose32_plain,
+    )
     from dctpu_torch.kernels.unpack import rice_unpack, unpack
     from dctpu_torch.kernels.vdec import decode_vertical, decode_vertical_plain
     from dctpu_torch.kernels.vemit import vertical_emit, vertical_emit_plain
-    from dctpu_torch.kernels.vertical import assemble_rows
+    from dctpu_torch.kernels.vertical import assemble_rows, sub_rows
 
     recs = {
         key: dict(name=name, route="cuda", source=src, replaces=rep,
@@ -189,6 +215,14 @@ def check_kernels(dev):
         rows = assemble_rows(planes, b, n_exc, e, pos_words, vals, L)
         payload, bit_len = rice_pack_plain(z, k, n, L)
         rice_rows = torch.nn.functional.pad(payload, (0, 2))
+        # K8 and K9 take the staged emission's inputs: the sub-block rows
+        # (zero past n) with the width rule's b (b = 0 and 32 on two blocks,
+        # so that ranks past EXC_CAP are dropped), and their lane-reversed
+        # 32-word groups
+        zs = to_i32(sub_rows(z, n, L)).reshape(B, -1, 128)
+        b_exc = b.clone()
+        b_exc[0], b_exc[1] = 0, 32
+        groups = zs.reshape(-1, 4, 32).flip(-1).reshape(-1, 128)
         cases = {
             "K1": (lambda: adaptive_totals_xbp(x, hist, n, L, K),
                    lambda: adaptive_totals_xbp_plain(x, hist, n, L, K)),
@@ -204,6 +238,12 @@ def check_kernels(dev):
                     lambda: (unpack(rice_rows, k, n, L),)),
             "K6": (lambda: (rice_totals(z, n, L, K),),
                    lambda: (rice_totals_plain(z, n, L, K),)),
+            "K7": (lambda: adaptive_totals_reduce(z, n, L, K),
+                   lambda: adaptive_totals_reduce_plain(z, n, L, K)),
+            "K8": (lambda: exc_extract(zs, b_exc),
+                   lambda: exc_extract_plain(zs, b_exc)),
+            "K9": (lambda: (grouped_bit_transpose32(groups),),
+                   lambda: (grouped_bit_transpose32_plain(groups),)),
         }
         for key, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -229,12 +269,23 @@ def check_kernels(dev):
                       f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}: {nbytes} B, {ops} ops)", flush=True)
         del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload, rice_rows
+        del zs, b_exc, groups
         torch.cuda.empty_cache()
     return recs
 
 
 def counters():
-    from dctpu_torch.kernels import pack, rice_totals, select_bp, unpack, vdec, vemit
+    from dctpu_torch.kernels import (
+        exc_extract,
+        pack,
+        rice_totals,
+        select_bp,
+        select_reduce,
+        transpose,
+        unpack,
+        vdec,
+        vemit,
+    )
 
     return {
         "K1": select_bp.adaptive_totals_xbp,
@@ -244,20 +295,40 @@ def counters():
         "K5a": pack.rice_pack,
         "K5b": unpack.rice_unpack,
         "K6": rice_totals.rice_totals,
+        "K7": select_reduce.adaptive_totals_reduce,
+        "K8": exc_extract.exc_extract,
+        "K9": transpose.grouped_bit_transpose32,
     }
 
 
-# kernels each path must launch (K6: once per candidate, 6 by default)
+def reset_counters() -> None:
+    for fn in counters().values():
+        fn.launches = 0
+
+
+def read_counters() -> dict:
+    return {k: fn.launches for k, fn in counters().items()}
+
+
+# kernels each path must launch (K6: once per candidate, 6 by default), and
+# those it must not: the paths are (coder, backend)
 NEEDS = {
-    "adaptive": ("K1", "K2", "K3", "K4", "K5a", "K5b"),
-    "rice": ("K5a", "K5b", "K6"),
-    "vertical": ("K3", "K4"),
+    ("adaptive", None): ("K1", "K2", "K3", "K4", "K5a", "K5b"),
+    ("rice", None): ("K5a", "K5b", "K6"),
+    ("vertical", None): ("K3", "K4"),
+    ("adaptive", "pallas"): ("K1", "K2", "K4", "K5a", "K5b", "K8", "K9"),
+    ("vertical", "pallas"): ("K4", "K8", "K9"),
 }
+NEVER = {("adaptive", "pallas"): ("K3",), ("vertical", "pallas"): ("K3",)}
 
 
-def run_path(dev, coder, streams, ids, cads):
-    """Phase 3, one coder: the 128 MiB round trip. Returns (frame bytes,
-    launches per kernel)."""
+def path_name(coder, backend) -> str:
+    return coder if backend is None else f"{coder}/{backend}"
+
+
+def run_path(dev, coder, streams, ids, cads, backend=None):
+    """Phase 3, one coder and backend: the 128 MiB round trip. Returns
+    (frame bytes, launches per kernel)."""
     import numpy as np
     import torch
 
@@ -269,47 +340,92 @@ def run_path(dev, coder, streams, ids, cads):
     cfg = CodecConfig(coder=coder)
     # warm-up on a small corpus (CUDA context, allocator), not counted
     warm, _, _ = synth_corpus(2, 3 * BENCH_LEN, seed=7)
-    decompress(read_frame(write_frame(compress(warm, cfg, device=dev))), device=dev)
+    decompress(read_frame(write_frame(
+        compress(warm, cfg, device=dev, backend=backend))), device=dev)
 
     raw_bytes = sum(s.nbytes for s in streams)
-    for fn in counters().values():
-        fn.launches = 0
+    name = path_name(coder, backend)
+    reset_counters()
     enc_ms, dec_ms = {}, {}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    frame = compress(streams, cfg, ids, cads, device=dev, stage_ms=enc_ms)
+    frame = compress(streams, cfg, ids, cads, device=dev, stage_ms=enc_ms,
+                     backend=backend)
     data = write_frame(frame)
     t1 = time.perf_counter()
     out = decompress(read_frame(data), device=dev, stage_ms=dec_ms)
     t2 = time.perf_counter()
-    launches = {k: fn.launches for k, fn in counters().items()}
+    launches = read_counters()
 
     if len(out) != len(streams) or not all(
         np.array_equal(a, b) for a, b in zip(streams, out)
     ):
-        fail(f"128 MiB {coder} round trip is not bit-exact")
+        fail(f"128 MiB {name} round trip is not bit-exact")
     hist = np.bincount(frame.blocks.coder_arr(), minlength=2)
-    print(f"{coder} path: {frame.blocks.num_blocks} blocks x {BENCH_LEN}, "
+    print(f"{name} path: {frame.blocks.num_blocks} blocks x {BENCH_LEN}, "
           f"{raw_bytes} bytes -> {len(data)} bytes, ratio "
           f"{raw_bytes / len(data):.4f}, RICE {hist[0]} / VERTICAL {hist[1]} "
           f"blocks, round trip bit-exact")
-    print(f"{coder} path: compress+write_frame {1e3 * (t1 - t0):.1f} ms "
+    print(f"{name} path: compress+write_frame {1e3 * (t1 - t0):.1f} ms "
           f"({raw_bytes / (t1 - t0) / 1e9:.3f} GB/s), read_frame+decompress "
           f"{1e3 * (t2 - t1):.1f} ms ({raw_bytes / (t2 - t1) / 1e9:.3f} GB/s), "
           f"host clock")
-    print(f"{coder} path encode stages (CUDA events, ms): "
+    print(f"{name} path encode stages (CUDA events, ms): "
           + json.dumps({k: round(v, 3) for k, v in enc_ms.items()}))
-    print(f"{coder} path decode stages (CUDA events, ms): "
+    print(f"{name} path decode stages (CUDA events, ms): "
           + json.dumps({k: round(v, 3) for k, v in dec_ms.items()}))
-    print(f"{coder} path kernel launches: {json.dumps(launches)}", flush=True)
-    if coder == "adaptive" and (hist[0] == 0 or hist[1] == 0):
+    print(f"{name} path kernel launches: {json.dumps(launches)}", flush=True)
+    if cfg.coder == "adaptive" and (hist[0] == 0 or hist[1] == 0):
         fail(f"expected both coder groups, got {hist.tolist()}")
-    missing = [k for k in NEEDS[coder] if launches[k] == 0]
+    missing = [k for k in NEEDS[cfg.coder, backend] if launches[k] == 0]
     if missing:
-        fail(f"kernels not launched on the {coder} path: {missing}")
-    if coder == "rice" and launches["K6"] != len(cfg.candidates()):
+        fail(f"kernels not launched on the {name} path: {missing}")
+    extra = [k for k in NEVER.get((cfg.coder, backend), ()) if launches[k]]
+    if extra:
+        fail(f"kernels launched on the {name} path that it replaces: {extra}")
+    if cfg.coder == "rice" and launches["K6"] != len(cfg.candidates()):
         fail(f"K6 launched {launches['K6']} times, not once per candidate")
     return data, launches
+
+
+def reduce_select_check(dev, streams) -> dict:
+    """Phase 3, backend="reduce": adaptive selection of the 128 MiB corpus
+    with K7 for every candidate equals the default selection (K1 + K2).
+    Returns the launches of the "reduce" run."""
+    import torch
+
+    from dctpu_torch.codec.api import build_blocks
+    from dctpu_torch.codec.encode import adaptive_select
+    from dctpu_torch.config import CodecConfig
+
+    cfg = CodecConfig(coder="adaptive")
+    x, n, hist = (torch.from_numpy(a).to(dev)
+                  for a in build_blocks(streams, cfg.block_len)[:3])
+    adaptive_select(x, n, hist, cfg, backend="reduce")  # warm-up, not counted
+    got, ms = {}, {}
+    for backend in (None, "reduce"):
+        torch.cuda.synchronize()
+        reset_counters()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        got[backend] = adaptive_select(x, n, hist, cfg, backend=backend)
+        end.record()
+        torch.cuda.synchronize()
+        ms[backend] = start.elapsed_time(end)
+    launches = read_counters()  # of the "reduce" run, the last one
+    for a, b in zip(got[None], got["reduce"]):
+        if not torch.equal(a, b):
+            fail("adaptive selection under backend='reduce' differs from the default")
+    C = len(cfg.candidates())
+    print(f"adaptive/reduce selection: equal to the default selection, "
+          f"{int(x.shape[0])} blocks; select {ms['reduce']:.3f} ms (default "
+          f"{ms[None]:.3f} ms), CUDA events; launches {json.dumps(launches)}",
+          flush=True)
+    if launches["K7"] != C or launches["K1"] or launches["K2"]:
+        fail(f"backend='reduce' selection launched K7 {launches['K7']} times "
+             f"(want {C}), K1 {launches['K1']}, K2 {launches['K2']} (want 0)")
+    return launches
 
 
 def oracle_check(streams, ids, cads, frames) -> None:
@@ -408,11 +524,24 @@ def main() -> int:
     frames, by_path = {}, {}
     for coder in CODERS:
         frames[coder], by_path[coder] = run_path(dev, coder, streams, ids, cads)
+    by_path["adaptive/reduce-select"] = reduce_select_check(dev, streams)
+    for coder in ("adaptive", "vertical"):
+        data, by_path[path_name(coder, "pallas")] = run_path(
+            dev, coder, streams, ids, cads, backend="pallas")
+        if data != frames[coder]:
+            fail(f"the {coder} frame under backend='pallas' differs from the "
+                 "default frame")
+        print(f"{coder}/pallas frame byte-identical to the {coder} frame",
+              flush=True)
+    # the count of the path each kernel was ported for: K1-K4 the adaptive
+    # path, K5a, K5b and K6 the rice path, K7 the "reduce" selection, K8 and
+    # K9 the adaptive path under backend="pallas"
+    home = {"K5a": "rice", "K5b": "rice", "K6": "rice",
+            "K7": "adaptive/reduce-select", "K8": "adaptive/pallas",
+            "K9": "adaptive/pallas"}
     for key, r in recs.items():
-        # the count of the path this kernel was ported for: K1-K4 the
-        # adaptive path, K5a, K5b and K6 the rice path
-        r["launches"] = by_path["rice" if key in NEEDS["rice"] else "adaptive"][key]
-        r["launches_by_path"] = {c: by_path[c][key] for c in CODERS}
+        r["launches"] = by_path[home.get(key, "adaptive")][key]
+        r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
     oracle_check(streams, ids, cads, frames)
     cli_check()
 

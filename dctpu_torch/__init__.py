@@ -9,17 +9,18 @@ Layers, mirroring ``dctpu``:
   corpus/  — synthetic load-profile generator (copy)
   codec/   — predictors, Rice math, block encode/decode, host API, and
              corpus-fit LPC tables (``select``, copy)
-  kernels/ — CUDA kernels K1-K6 (csrc/) with plain torch twins, and the
+  kernels/ — CUDA kernels K1-K9 (csrc/) with plain torch twins, and the
              plain torch VERTICAL region math and ragged copies
   csrc/    — the CUDA C++ sources, built for sm_90a at first use
   cli/     — encode / decode / verify (``python -m dctpu_torch.cli.main``)
 
 All three coders are ported: ``CodecConfig(coder="rice")`` (the default),
 ``"vertical"`` and ``"adaptive"`` (the CLI default), through
-``dctpu_torch.codec.api.compress`` and ``decompress``. Not yet ported:
-the sharded and multi-process paths, the CLI's ``--sharded`` flag and
-``bench`` verb, and the reference's A/B kernel backends. The compile cache
-of ``dctpu/utils`` is JAX-only and has no counterpart.
+``dctpu_torch.codec.api.compress`` and ``decompress``, with the
+reference's encode ``backend`` names. Not yet ported: the sharded and
+multi-process paths, the CLI's ``--sharded`` flag and ``bench`` verb, and
+the reference's decode backends. The compile cache of ``dctpu/utils`` is
+JAX-only and has no counterpart.
 """
 
 from dctpu_torch.config import CodecConfig, DEFAULT_LPC_TABLES, LpcTable  # noqa: F401

@@ -153,6 +153,7 @@ def compress(
     cadences: Sequence[int] | None = None,
     device="cuda",
     stage_ms: dict | None = None,
+    backend: str | None = None,
 ) -> Frame:
     """Streams -> DCF1 frame, with ``cfg`` (default ``CodecConfig()``, the
     RICE coder, as in the reference).
@@ -161,7 +162,12 @@ def compress(
     coder="adaptive" (FORMAT §4.1), the (candidate, k) per block for
     "rice" and "vertical". The blocks are grouped by coder, each group is
     emitted and compacted, and the compact words are interleaved back into
-    block-table order on the device."""
+    block-table order on the device.
+
+    ``backend`` goes to selection and emission as in the reference's
+    compress: every name gives the same frame and picks the kernels of
+    each stage (``codec/encode.py``). A RICE group raises ValueError for a
+    name the reference's packer does not know ("reduce", "bp", ...)."""
     cfg = cfg or CodecConfig()
     if cfg.coder not in ("adaptive", *_CODER_ID):
         raise ValueError(f"unknown coder {cfg.coder!r}")
@@ -174,9 +180,9 @@ def compress(
         x, n, hist = (torch.from_numpy(a).to(device) for a in (x_h, n_h, hist_h))
     with stage("select"):
         if cfg.coder == "adaptive":
-            choice, coder, kk = adaptive_select(x, n, hist, cfg)
+            choice, coder, kk = adaptive_select(x, n, hist, cfg, backend)
         else:
-            choice, kk = select_blocks(x, n, hist, cfg)
+            choice, kk = select_blocks(x, n, hist, cfg, backend)
             coder = torch.full_like(choice, _CODER_ID[cfg.coder])
     coder_h = coder.cpu().numpy()
 
@@ -190,7 +196,8 @@ def compress(
         idx = torch.from_numpy(idx_h).to(device)
         with stage(f"emit_{gname}"):
             payload, bl = emit_blocks(
-                x[idx], n[idx], hist[idx], choice[idx], kk[idx], cfg, gname
+                x[idx], n[idx], hist[idx], choice[idx], kk[idx], cfg, gname,
+                backend,
             )
         with stage(f"compact_{gname}"):
             words, wcg = compact_enc_payload(payload, bl, L, gname)

@@ -13,6 +13,26 @@ cost, plain torch (XLA on the TPU too). Emission derives the winner's
 zigzag values and runs the coder of the group: K3 plus the region
 assembly for VERTICAL, K5a for RICE.
 
+``backend`` is the reference's encode-side kernel choice
+(``dctpu/codec/encode.py``, ``dctpu/kernels/api.py``). Every name gives
+the same frame; it only picks the implementation of each stage:
+
+  * ``None`` / ``"auto"``, and ``"scan"``, ``"merge"``, ``"scatter"`` (the
+    reference's XLA packers; the port's one packer is K5a): as above;
+  * ``"pallas"`` (any name starting with it, for VERTICAL): VERTICAL
+    emission takes the staged branch, K9 then the width rule then K8;
+  * ``"reduce"``: adaptive selection runs K7 for every candidate;
+  * ``"bp"``: as ``"auto"`` for selection and VERTICAL emission;
+  * ``"xla"``, the reference's portable opt-out: as ``"auto"``, but
+    VERTICAL emission takes the staged branch as under ``"pallas"``
+    (the reference's staged branch with its XLA extractor). The port has
+    one implementation of each stage for a device: the kernels on a CUDA
+    device, their plain twins only for CPU tensors, under every name;
+  * RICE emission takes only the reference packer's names (``None``,
+    ``"auto"``, ``"xla"``, ``"scan"``, ``"merge"``, ``"scatter"``,
+    ``"pallas"``) and raises ValueError for any other, as
+    ``dctpu/kernels/api.py`` ``pack`` does; no other stage raises.
+
 PyTorch runs eagerly, so there is nothing to compile and no chunking: a
 batch of any size runs in one pass.
 """
@@ -23,13 +43,27 @@ from typing import Tuple
 
 import torch
 
+from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import predict, rice
 from dctpu_torch.config import CodecConfig
-from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC
+from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC, subs_per_block
+from dctpu_torch.kernels.exc_extract import exc_extract
 from dctpu_torch.kernels.pack import rice_pack
 from dctpu_torch.kernels.select_bp import adaptive_totals_bp, adaptive_totals_xbp
+from dctpu_torch.kernels.select_reduce import adaptive_totals_reduce
+from dctpu_torch.kernels.transpose import grouped_bit_transpose32
 from dctpu_torch.kernels.vemit import vertical_emit
-from dctpu_torch.kernels.vertical import assemble_rows, vertical_selection_cost
+from dctpu_torch.kernels.vertical import (
+    assemble_rows,
+    exceed_counts,
+    plane_word_counts,
+    select_width,
+    sub_rows,
+    vertical_selection_cost,
+)
+
+# the reference RICE packer's backend names (dctpu/kernels/api.py pack)
+RICE_PACK_BACKENDS = (None, "auto", "xla", "scan", "merge", "scatter", "pallas")
 
 
 def candidate_z(x, history, cfg: CodecConfig, ci: int) -> torch.Tensor:
@@ -52,6 +86,7 @@ def select_blocks(
     n: torch.Tensor,        # [B] int32
     history: torch.Tensor,  # [B, 4] int32
     cfg: CodecConfig,
+    backend: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Single-coder selection (cfg.coder "rice" or "vertical"), the first
     half of the reference's encode_blocks. Returns (choice, k), each [B]
@@ -59,7 +94,7 @@ def select_blocks(
 
     RICE: the exact (k, bits) per candidate from K6, then the candidate
     with the fewest bits. VERTICAL: the candidate with the smallest sum of
-    bit lengths."""
+    bit lengths. Every backend name takes this path."""
     L = x.shape[1]
     C = len(cfg.candidates())
     if cfg.coder == "vertical":
@@ -70,6 +105,7 @@ def select_blocks(
         ])
         choice = _first_min(cost)
         return choice.to(torch.int32), torch.zeros_like(choice, dtype=torch.int32)
+
     ks, bits = zip(*(
         rice.choose_k_auto(candidate_z(x, history, cfg, ci), n, L, cfg.k_max)
         for ci in range(C)
@@ -84,23 +120,30 @@ def adaptive_select(
     n: torch.Tensor,        # [B] int32
     history: torch.Tensor,  # [B, 4] int32
     cfg: CodecConfig,
+    backend: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """FORMAT §4.1 joint (candidate, coder) selection by exact word count.
 
     Returns (choice, coder 0=RICE/1=VERTICAL, k), each [B] int32. The first
     minimum in the option order c0-RICE, c0-VERT, c1-RICE, ... wins: the
-    minimum of the packed key words * (2C) + option."""
+    minimum of the packed key words * (2C) + option.
+
+    The totals come from K1 and K2; from K7 for every candidate under
+    backend="reduce" (which raises ValueError for k_max > 24, where the
+    reference asserts)."""
     L = x.shape[1]
+    reduce = backend == "reduce"
     shift = None
     ks, rws, vws = [], [], []
     for ci, (pred, _) in enumerate(cfg.candidates()):
-        if pred in (DELTA, DOUBLE_DELTA):
+        if not reduce and pred in (DELTA, DOUBLE_DELTA):
             if shift is None:
                 shift = adaptive_totals_xbp(x, history, n, L, cfg.k_max)
             gi = 0 if pred == DELTA else 1
             totals, vword = shift[0][gi], shift[1][gi]
         else:
-            totals, vword = adaptive_totals_bp(
+            totals_of = adaptive_totals_reduce if reduce else adaptive_totals_bp
+            totals, vword = totals_of(
                 candidate_z(x, history, cfg, ci), n, L, cfg.k_max
             )
         k_c, bits_c = rice.best_k(totals)
@@ -117,12 +160,42 @@ def adaptive_select(
     return choice.to(torch.int32), coder.to(torch.int32), k.to(torch.int32)
 
 
+def _emit_staged(z: torch.Tensor, n: torch.Tensor, block_len: int):
+    """The staged VERTICAL analysis of the reference's encode_vertical
+    (exc_backend "pallas" or "xla"), with K3's outputs: the plane words by
+    the grouped 32x32 bit transpose (K9), the width rule in torch, the
+    exceptions at that width (K8)."""
+    B = z.shape[0]
+    S = subs_per_block(block_len)
+    rows = sub_rows(z, n, block_len)  # [B*S, 128] int64, zero past n
+    zs = to_i32(rows)
+    # K9 takes and gives lane-reversed groups: rev(K9(rev(g))) is the
+    # transpose, word w of plane p at [w, p]; the disk order is p-major
+    groups = zs.reshape(-1, 4, 32).flip(-1).reshape(-1, 128)
+    planes = grouped_bit_transpose32(groups).reshape(-1, 4, 32)
+    planes = planes.flip(-1).transpose(1, 2)
+    pw = plane_word_counts(block_len, z.device).repeat(B)
+    b, words, n_exc, e = (
+        t.reshape(B, S) for t in select_width(exceed_counts(rows), pw)
+    )
+    pos_words, vals = exc_extract(zs.reshape(B, S, 128), b.to(torch.int32))
+    return planes.reshape(B, S, 128), b, words, n_exc, e, pos_words, vals
+
+
 def encode_vertical(
-    z: torch.Tensor, n: torch.Tensor, block_len: int
+    z: torch.Tensor, n: torch.Tensor, block_len: int, exc_backend: str = "mega"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """VERTICAL emit: K3, then the region assembly. Returns
-    (payload [B, SW + S*REGION_PAD] int32 bit patterns, bit_len [B] int64)."""
-    planes, b, words, n_exc, e, pos_words, vals = vertical_emit(z, n, block_len)
+    """VERTICAL emit, then the region assembly. Returns (payload
+    [B, SW + S*REGION_PAD] int32 bit patterns, bit_len [B] int64).
+
+    exc_backend, as in the reference's vertical_xla.encode_vertical:
+    "mega" runs the whole per-sub analysis in K3; "pallas" and "xla" the
+    staged branch with K9 and K8."""
+    if exc_backend == "mega":
+        emitted = vertical_emit(z, n, block_len)
+    else:
+        emitted = _emit_staged(z, n, block_len)
+    planes, b, words, n_exc, e, pos_words, vals = emitted
     payload = assemble_rows(planes, b, n_exc, e, pos_words, vals, block_len)
     return payload, 32 * words.to(torch.int64).sum(1)
 
@@ -135,12 +208,16 @@ def emit_blocks(
     k: torch.Tensor,        # [B] Rice k (ignored for vertical)
     cfg: CodecConfig,
     coder: str,             # "rice" | "vertical" for this group
+    backend: str | None = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Emit one coder group with a given (candidate, k) selection.
 
     Returns (payload rows [B, W] int32 bit patterns, bit_len [B] int64).
     The winner's zigzag values are derived per candidate over the blocks
-    that chose it."""
+    that chose it. A RICE group raises ValueError for a backend name the
+    reference's packer does not know."""
+    if coder != "vertical" and backend not in RICE_PACK_BACKENDS:
+        raise ValueError(f"unknown kernel backend {backend!r}")
     B, L = x.shape
     z = torch.zeros((B, L), dtype=torch.int32, device=x.device)
     for ci in range(len(cfg.candidates())):
@@ -148,5 +225,6 @@ def emit_blocks(
         if rows.numel():
             z[rows] = candidate_z(x[rows], history[rows], cfg, ci)
     if coder == "vertical":
-        return encode_vertical(z, n, L)
+        staged = backend == "xla" or (backend or "").startswith("pallas")
+        return encode_vertical(z, n, L, "pallas" if staged else "mega")
     return rice_pack(z, k, n, L)

@@ -1,6 +1,6 @@
 // Shared device helpers of the VERTICAL-coder kernels (select.cu, vemit.cu,
-// vdec.cu): one 128-sample sub-block row is four warps, lane c of warp w
-// holding sample 32w + c (docs/FORMAT.md §2.2).
+// vdec.cu, exc.cu, transpose.cu): one 128-sample sub-block row is four
+// warps, lane c of warp w holding sample 32w + c (docs/FORMAT.md §2.2).
 //
 // The TPU kernels built the bit planes with a 32x32 butterfly transpose plus
 // a bit reversal (dctpu/kernels/select_bp.py _bt32_rows, vemit_pallas.py

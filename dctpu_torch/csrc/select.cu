@@ -1,4 +1,5 @@
-// K1, K2 and K6: exact selection totals (FORMAT §4, §4.1) per block.
+// K1, K2, K6 and K7: exact selection totals (FORMAT §4, §4.1) per block.
+// K7 (select_reduce_kernel, below) has its own design, described there.
 //
 // Replaces dctpu/kernels/select_bp.py _xbp_kernel (K1: DELTA and
 // DOUBLE_DELTA candidates derived from raw samples) and _bp_kernel (K2: one
@@ -119,6 +120,92 @@ select_totals_kernel(const int32_t* __restrict__ src,
   }
 }
 
+// K7: K2's outputs in the reduction formulation of
+// dctpu/kernels/select_pallas.py _adaptive_kernel (adaptive_totals_pallas),
+// the A/B twin the reference keeps beside K2. Per 128-sample sub-block row:
+// the direct per-k lengths (z >> (k + 4) != 0 ? 48 : ((z >> k) & 15) + k + 1)
+// over the valid samples, then the exceed table E[b] = #{bit length > b} as
+// 32 warp sums and the FORMAT §2.2 width rule on it.
+//
+// What bounds it on the card: ~4 integer ops per sample and k against one
+// 4-byte read per sample, like K2: operations. Design: one thread block of
+// kReduceWarps warps per codec block; each warp takes every kReduceWarps-th
+// sub-block row, lane c holding samples 32i + c (coalesced loads). The
+// TPU's pair- and quad-packed lane sums (which only cut Mosaic lane
+// reductions) become __reduce_add_sync: one per b for E, one per k at the
+// end; the width rule is bitplane.cuh's select_width on the warp's E. The
+// warps' totals meet once in shared memory: no atomics, no second pass.
+constexpr int kReduceWarps = 8;
+
+__global__ void __launch_bounds__(kReduceWarps * 32)
+select_reduce_kernel(const int32_t* __restrict__ z,
+                     const int32_t* __restrict__ n,
+                     int32_t* __restrict__ out, int block_len, int k_max) {
+  __shared__ int e_sh[kReduceWarps][32];
+  __shared__ int red[kReduceWarps][kMaxK + 1];  // per-k sums, then vwords
+
+  const int blk = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nb = min(n[blk], block_len);
+  const int32_t* row = z + static_cast<size_t>(blk) * block_len;
+
+  int acc[kMaxK];
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) acc[k] = 0;
+  int vwords = 0;
+
+  const int subs = (block_len + kSub - 1) / kSub;
+  for (int s = warp; s < subs; s += kReduceWarps) {
+    uint32_t v[kWarps];
+    int bl[kWarps];
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      const int idx = s * kSub + 32 * i + lane;
+      const bool valid = idx < nb;
+      v[i] = valid ? static_cast<uint32_t>(row[idx]) : 0u;
+      bl[i] = bit_length(v[i]);
+#pragma unroll
+      for (int k = 0; k < kMaxK; ++k) {
+        if (valid && k <= k_max) {
+          acc[k] += (v[i] >> (k + 4)) != 0u
+                        ? 48
+                        : static_cast<int>((v[i] >> k) & 15u) + k + 1;
+        }
+      }
+    }
+    int mine = 0;
+#pragma unroll
+    for (int b = 0; b < 32; ++b) {
+      int c = 0;
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) c += bl[i] > b;
+      c = __reduce_add_sync(kFull, c);
+      if (lane == b) mine = c;
+    }
+    e_sh[warp][lane] = mine;
+    __syncwarp();
+    vwords += select_width(e_sh[warp], plane_words(s, block_len)).words;
+    __syncwarp();  // e_sh is rewritten by the next row
+  }
+
+#pragma unroll
+  for (int k = 0; k < kMaxK; ++k) {
+    const int t = __reduce_add_sync(kFull, acc[k]);
+    if (lane == 0) red[warp][k] = t;
+  }
+  if (lane == 0) red[warp][kMaxK] = vwords;
+  __syncthreads();
+  const int width = k_max + 2;
+  if (threadIdx.x < width) {
+    const int j = threadIdx.x <= k_max ? threadIdx.x : kMaxK;
+    int t = 0;
+#pragma unroll
+    for (int w = 0; w < kReduceWarps; ++w) t += red[w][j];
+    out[static_cast<size_t>(blk) * width + threadIdx.x] = t;
+  }
+}
+
 }  // namespace dct
 
 // K1: x [B, L] raw int32 samples, hist [B, 4] -> out [B, 2, k_max + 2]
@@ -143,6 +230,18 @@ extern "C" int dct_select_bp(const void* z, const void* n, void* out,
           static_cast<const int32_t*>(z), nullptr,
           static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
           block_len, k_max);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K7: z [B, L] zigzag values (int32 bit patterns) -> out [B, k_max + 2],
+// K2's layout.
+extern "C" int dct_select_reduce(const void* z, const void* n, void* out,
+                                 int num_blocks, int block_len, int k_max,
+                                 void* stream) {
+  dct::select_reduce_kernel<<<num_blocks, dct::kReduceWarps * 32, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(z), static_cast<const int32_t*>(n),
+      static_cast<int32_t*>(out), block_len, k_max);
   return static_cast<int>(cudaGetLastError());
 }
 

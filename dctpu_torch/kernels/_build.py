@@ -26,7 +26,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dctpu_torch"
-SOURCES = ("select.cu", "vemit.cu", "vdec.cu", "pack.cu", "unpack.cu")
+SOURCES = (
+    "select.cu", "vemit.cu", "vdec.cu", "pack.cu", "unpack.cu", "exc.cu",
+    "transpose.cu",
+)
 HEADERS = ("bitplane.cuh",)
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
@@ -44,6 +47,9 @@ SIGNATURES = {
     "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_unpack": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),
+    "dct_exc_extract": (_P, _P, _P, _P, _I, _P),
+    "dct_bit_transpose": (_P, _P, _I, _P),
 }
 
 

@@ -28,6 +28,7 @@ from dctpu_torch.kernels import _build
 from dctpu_torch.kernels.vertical import (
     POS_REGION,
     REGION_PAD,
+    bit_transpose32,
     padded_words_vertical,
     parse_sync,
     plane_word_counts,
@@ -55,11 +56,8 @@ def decode_vertical_plain(
     slot = (p_ax * pw3 + w_ax).clamp(max=REGION_PAD - 1).reshape(R, 128)
     planes = span.gather(1, slot).reshape(R, 32, 4)
     planes = torch.where((w_ax < pw3) & (p_ax < b[:, None, None]), planes, 0)
-    lane_w = torch.arange(SUB_BLOCK, device=dev) // 32
-    lane_c = torch.arange(SUB_BLOCK, device=dev) % 32
-    z = torch.zeros((R, SUB_BLOCK), dtype=torch.int64, device=dev)
-    for p in range(32):
-        z |= ((planes[:, p, lane_w] >> lane_c) & 1) << p
+    # each 32-sample group is the transpose of its [32 planes] words
+    z = bit_transpose32(planes.transpose(1, 2)).reshape(R, SUB_BLOCK)
 
     # tail at word pw*b: [posw position words | value words]
     t0 = pw[:, 0] * b
@@ -74,14 +72,12 @@ def decode_vertical_plain(
     )
     # bit-planed layout: plane p = bits [16*(p%2), +16) of word p//2
     vplanes = torch.stack([val_words & 0xFFFF, val_words >> 16], dim=2).reshape(R, 32)
-    j = torch.arange(EXC_CAP, device=dev)
-    planed = torch.zeros((R, EXC_CAP), dtype=torch.int64, device=dev)
-    for p in range(32):
-        planed |= ((vplanes[:, p : p + 1] >> j) & 1) << p
+    planed = bit_transpose32(vplanes)[:, :EXC_CAP]
     raw = n_exc <= (e + 1) // 2
     vals = torch.where(raw[:, None], val_words, planed)
 
     # patch: OR v_j << b into the (distinct) live positions
+    j = torch.arange(EXC_CAP, device=dev)
     pos = (pos_words[:, j // 4] >> (8 * (j % 4))) & 0xFF  # [R, 16]
     live = (j < n_exc[:, None]) & (b[:, None] < 32) & (pos < SUB_BLOCK)
     patch = torch.where(

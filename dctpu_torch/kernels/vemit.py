@@ -20,6 +20,7 @@ from dctpu_torch._bits import to_i32
 from dctpu_torch.constants import EXC_CAP, SUB_BLOCK, subs_per_block
 from dctpu_torch.kernels import _build
 from dctpu_torch.kernels.vertical import (
+    bit_transpose32,
     exceed_counts,
     plane_word_counts,
     select_width,
@@ -43,11 +44,7 @@ def vertical_emit_plain(z: torch.Tensor, n: torch.Tensor, block_len: int):
     b, words, n_exc, e = select_width(exceed_counts(rows), pw)
 
     # plane (p, w) bit c = bit p of sample 32w + c; stored p-major (p*4 + w)
-    g = rows.reshape(R, 4, 32)
-    c = torch.arange(32, device=z.device)
-    planes = torch.stack(
-        [(((g >> p) & 1) << c).sum(-1) for p in range(32)], dim=1
-    ).reshape(R, 4 * 32)
+    planes = bit_transpose32(rows.reshape(R, 4, 32)).transpose(1, 2)
 
     # exceptions: high bits at width b, placed at their rank
     high = torch.where(
@@ -63,7 +60,7 @@ def vertical_emit_plain(z: torch.Tensor, n: torch.Tensor, block_len: int):
     cpos.scatter_(1, slot, torch.where(is_exc, lane, 0))
     sh = (B, S)
     return (
-        to_i32(planes).reshape(sh + (4 * 32,)),
+        to_i32(planes.reshape(sh + (4 * 32,))),
         *(t.to(torch.int32).reshape(sh) for t in (b, words, n_exc, e)),
         to_i32(_pack_positions(cpos[:, :EXC_CAP])).reshape(sh + (4,)),
         to_i32(cval[:, :EXC_CAP]).reshape(sh + (EXC_CAP,)),

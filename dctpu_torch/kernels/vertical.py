@@ -1,9 +1,10 @@
 """VERTICAL coder (docs/FORMAT.md §2.2) in plain torch: the shared math.
 
 The counterpart of ``dctpu/kernels/vertical_xla.py``: sub-block geometry,
-the exceed table and width rule, the exact word count used by adaptive
-selection, the bit-length cost used by coder="vertical" selection,
-the region assembly after the emit kernel, and the sync-entry parse.
+the 32x32 bit transpose, the exceed table and width rule, the exact word
+count used by adaptive selection, the bit-length cost used by
+coder="vertical" selection, the region assembly after the emit kernel,
+and the sync-entry parse.
 
 Layout of a staged payload row (the contract of the decode kernel, K4):
 ``[sync words | one REGION_PAD-word slot per sub-block]``. A slot holds the
@@ -52,6 +53,15 @@ def sub_rows(z: torch.Tensor, n: torch.Tensor, block_len: int) -> torch.Tensor:
     if pad:
         u = torch.nn.functional.pad(u, (0, pad))
     return u.reshape(B * S, SUB_BLOCK)
+
+
+def bit_transpose32(x: torch.Tensor) -> torch.Tensor:
+    """32x32 bit-matrix transpose along the last axis (length 32):
+    out[..., a] bit c == x[..., c] bit a. Self-inverse. u32 words in (int32
+    bit patterns or int64 values), int64 u32 values out."""
+    u = to_u32(x)
+    c = torch.arange(32, device=x.device)
+    return torch.stack([(((u >> a) & 1) << c).sum(-1) for a in range(32)], dim=-1)
 
 
 def exceed_counts(rows: torch.Tensor) -> torch.Tensor:

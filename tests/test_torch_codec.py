@@ -26,7 +26,17 @@ from dctpu.format import write_frame as ref_write_frame
 from dctpu_torch.codec import api
 from dctpu_torch.config import CodecConfig, from_reference
 from dctpu_torch.format import read_frame, write_frame
-from dctpu_torch.kernels import pack, rice_totals, select_bp, unpack, vdec, vemit
+from dctpu_torch.kernels import (
+    exc_extract,
+    pack,
+    rice_totals,
+    select_bp,
+    select_reduce,
+    transpose,
+    unpack,
+    vdec,
+    vemit,
+)
 from tests.conftest import stream_cases
 from tests.test_adaptive import _mixed_streams
 
@@ -222,6 +232,9 @@ def test_wrappers_refuse_other_devices():
         lambda: rice_totals.rice_totals(z, n, 256, 24),
         lambda: pack.rice_pack(z, n, n, 256),
         lambda: unpack.rice_unpack(rice_rows, n, n, 256),
+        lambda: select_reduce.adaptive_totals_reduce(z, n, 256, 24),
+        lambda: exc_extract.exc_extract(z.reshape(2, 2, 128), n.reshape(2, 1)),
+        lambda: transpose.grouped_bit_transpose32(z.reshape(4, 128)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):
@@ -233,6 +246,8 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import dctpu_torch.codec.api, dctpu_torch.kernels.vdec, chip_smoke\n"
         "import dctpu_torch.cli.main, dctpu_torch.codec.select\n"
+        "import dctpu_torch.kernels.select_reduce, dctpu_torch.kernels.exc_extract\n"
+        "import dctpu_torch.kernels.transpose\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dctpu' or m.startswith('dctpu.')]\n"
         "assert not bad, bad\n"

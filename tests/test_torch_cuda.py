@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K6 against their plain twins, on the card.
+"""The CUDA kernels K1-K9 against their plain twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -11,12 +11,23 @@ import numpy as np
 import pytest
 import torch
 
-from dctpu_torch.codec import api
+from dctpu_torch._bits import to_i32
+from dctpu_torch.codec import api, encode
 from dctpu_torch.config import CodecConfig, LpcTable
 from dctpu_torch.corpus import synth_corpus
 from dctpu_torch.format import read_frame, write_frame
-from dctpu_torch.kernels import pack, rice_totals, select_bp, unpack, vdec, vemit
-from dctpu_torch.kernels.vertical import assemble_rows
+from dctpu_torch.kernels import (
+    exc_extract,
+    pack,
+    rice_totals,
+    select_bp,
+    select_reduce,
+    transpose,
+    unpack,
+    vdec,
+    vemit,
+)
+from dctpu_torch.kernels.vertical import assemble_rows, sub_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -110,3 +121,57 @@ def test_card_frames_equal_cpu_frames(cuda, name):
     assert on_card == write_frame(api.compress(streams, cfg, ids, cads, device="cpu"))
     out = api.decompress(read_frame(on_card), device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
+
+
+@pytest.mark.parametrize("L", [4096, 300, 100, 129])
+def test_backend_kernels_match_twins_on_card(cuda, L):
+    """K7, K8 (at the width rule's b and at b = 0 and 32) and K9."""
+    z, _, _, n, _ = (t.to(cuda) for t in _inputs(L, 13))
+    _same(select_reduce.adaptive_totals_reduce(z, n, L, 24),
+          select_reduce.adaptive_totals_reduce_plain(z, n, L, 24))
+    B = z.shape[0]
+    zs = to_i32(sub_rows(z, n, L)).reshape(B, -1, 128)
+    b = vemit.vertical_emit_plain(z, n, L)[1].clone()
+    b[0], b[1] = 0, 32
+    _same(exc_extract.exc_extract(zs, b), exc_extract.exc_extract_plain(zs, b))
+    rows = zs.reshape(-1, 128)
+    _same((transpose.grouped_bit_transpose32(rows),),
+          (transpose.grouped_bit_transpose32_plain(rows),))
+
+
+def test_backend_paths_on_card(cuda):
+    """backend="pallas" and "xla" run K9 and K8 instead of K3, the other
+    kernels as by default (never a plain twin on the card), and give the
+    default frame; backend="reduce" selects with K7 alone and raises at
+    the RICE group, as the reference does."""
+    cfg = CodecConfig(block_len=1000, coder="adaptive")
+    streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
+                                      cumulative_frac=0.5)
+    want = write_frame(api.compress(streams, cfg, ids, cads, device=cuda))
+    assert set(read_frame(want).blocks.coder_arr().tolist()) == {0, 1}
+    counted = (vemit.vertical_emit, exc_extract.exc_extract,
+               transpose.grouped_bit_transpose32, select_bp.adaptive_totals_xbp,
+               select_bp.adaptive_totals_bp, pack.rice_pack)
+    for backend in ("pallas", "xla"):
+        for fn in counted:
+            fn.launches = 0
+        got = write_frame(api.compress(streams, cfg, ids, cads, device=cuda,
+                                       backend=backend))
+        assert got == want
+        assert [fn.launches for fn in counted] == [
+            0, 1, 1, 1, len(cfg.candidates()) - 2, 1]
+        out = api.decompress(read_frame(got), device=cuda)
+        assert all(np.array_equal(a, b) for a, b in zip(streams, out))
+
+    x, n, h, _, _ = api.build_blocks(streams, cfg.block_len)
+    t = [torch.from_numpy(a).to(cuda) for a in (x, n, h)]
+    auto = encode.adaptive_select(*t, cfg)
+    for fn in (select_bp.adaptive_totals_xbp, select_bp.adaptive_totals_bp,
+               select_reduce.adaptive_totals_reduce):
+        fn.launches = 0
+    _same(encode.adaptive_select(*t, cfg, backend="reduce"), auto)
+    assert select_reduce.adaptive_totals_reduce.launches == len(cfg.candidates())
+    assert select_bp.adaptive_totals_xbp.launches == 0
+    assert select_bp.adaptive_totals_bp.launches == 0
+    with pytest.raises(ValueError, match="unknown kernel backend"):
+        api.compress(streams, cfg, ids, cads, device=cuda, backend="reduce")
