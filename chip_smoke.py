@@ -9,16 +9,24 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      twin on the card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
      (block_len % 128 != 0) and 32 x 12000 (rows too large for K5a's
      shared-memory path), with edge rows, and times both at 8192 x 4096
-     with CUDA events beside each kernel's bound;
+     with CUDA events beside each kernel's bound; K2 in both its forms,
+     on zigzag values and on the raw samples with an LPC table ("K2-lpc":
+     each default table and one whose products wrap the int64
+     accumulator);
   3. drives compress -> write_frame -> read_frame -> decompress for the
      adaptive, rice and vertical coders at the bench geometry (8192 blocks
      x 4096 int32 = 128 MiB, resident on the card), each with the launch
      counters set to 0 just before it and read just after: every round
      trip bit-exact, every kernel of each path launched (K6 once per
-     candidate on the rice path); then, on the same corpus, the adaptive
-     selection under backend="reduce" (K7 once per candidate, K1 and K2
-     never; equal to the default selection) and the adaptive and vertical
-     round trips under backend="pallas" (K9 and K8 in place of K3; frames
+     candidate on the rice path; K1 once and K2's LPC form once per LPC
+     candidate on the adaptive paths), with the device segments each
+     compress obtained from the allocator (and, for the adaptive path, the
+     stage times of a second compress on the cached segments); then, on
+     the same corpus, the adaptive selection under backend="reduce" (K7
+     once per candidate on the torch residuals, K1 and K2 never; equal to
+     the default selection, which is the full-size check of the LPC
+     residuals derived in K2) and the adaptive and vertical round trips
+     under backend="pallas" (K9 and K8 in place of K3; frames
      byte-identical to the default ones);
   4. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
@@ -46,6 +54,7 @@ BENCH_BLOCKS, BENCH_LEN = 8192, 4096
 SHAPES = ((256, 4096), (BENCH_BLOCKS, BENCH_LEN), (256, 200), (32, 12000))
 K_MAX = 24
 CODERS = ("adaptive", "rice", "vertical")
+WRAP_COEFFS = (-(2**31),) * 4  # 4 * 2**62 on -2**31 samples: wraps int64
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
 # rate outside the tensor cores for the kernels' int32 ALU work (the card's
 # int32 rate is no higher, so the bound stays a least time).
@@ -59,12 +68,15 @@ def fail(msg: str) -> None:
 
 
 def time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over reps launches, after one warm-up."""
+    """Mean device time of fn() over reps launches, after one warm-up. A
+    device sleep ahead of them lets the host queue the launches, so that a
+    kernel shorter than its wrapper's host time is timed on the device."""
     import torch
 
     fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -123,28 +135,46 @@ def bound(nbytes: float, ops: float):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+# Integer work of the selection totals, the same for every implementation
+# (the least the function needs, by the bit-length identity of select.cu):
+# per valid sample and candidate, the bit length (clz, subtract), the three
+# bits below the leading one (shift, shift, mask) and the four histogram
+# counts; per block and candidate, a 33-bin suffix sum and ~24 ops per k
+# for L(k); per 128-sample row and candidate (VERTICAL words), a 32-step
+# suffix sum and ~9 ops for each of the 33 widths. The residuals derived
+# from x add, per sample, DELTA + DOUBLE_DELTA 3 subtractions and 2
+# zigzags (3 each), LPC 4 multiplies, 3 adds and a shift in 64 bits (2
+# each), a subtraction and a zigzag.
+LEN_OPS, K_OPS, ROW_OPS = 9, 24, 32 + 33 * 9
+DELTAS_OPS, LPC_OPS = 3 + 2 * 3, 2 * (4 + 3 + 1) + 1 + 3
+
+
 def work(key, B, L, n, b, rows_words):
     """(bytes, ops) of kernel `key` on this run's inputs. ops count the
-    integer work per valid sample that the function needs: 4 per (sample,
-    candidate, k) for the RICE totals (shift, compare, select, add), 32 per
-    (sample, candidate) for the VERTICAL exceed table, 32 for K3's bit
-    planes, 3 per decoded plane bit for K4, ~20 per codeword for the
-    RICE pack (codeword, scan, ORs) and unpack (window, count, extract),
-    4 per sub-block word for K8 (shift, compare, vote, rank) and 32 per
-    word for K9 (one vote per plane)."""
+    integer work that the function needs: the selection totals as above
+    (K1, K2, K2-lpc, K6 without the VERTICAL words, K7), 32 per valid
+    sample for K3's bit planes, 3 per decoded plane bit for K4, ~20 per
+    codeword for the RICE pack (codeword, scan, ORs) and unpack (window,
+    count, extract), 4 per sub-block word for K8 (shift, compare, vote,
+    rank) and 32 per word for K9 (one vote per plane)."""
     v = int(n.clamp(0, L).sum())
     K1 = K_MAX + 1
     R = B * -(-L // 128)
     sub_bytes = R * 4
+    rice = v * LEN_OPS + B * (33 + K_OPS * K1)
+    select = rice + R * ROW_OPS  # per candidate
     return {
-        "K1": (4 * B * L + 16 * B + 4 * B + 8 * B * (K1 + 1), v * 2 * (4 * K1 + 32)),
-        "K2": (4 * B * L + 4 * B + 4 * B * (K1 + 1), v * (4 * K1 + 32)),
+        "K1": (4 * B * L + 16 * B + 4 * B + 8 * B * (K1 + 1),
+               2 * select + v * DELTAS_OPS),
+        "K2": (4 * B * L + 4 * B + 4 * B * (K1 + 1), select),
+        "K2-lpc": (4 * B * L + 16 * B + 4 * B + 4 * B * (K1 + 1),
+                   select + v * LPC_OPS),
         "K3": (4 * B * L + 4 * B + sub_bytes * (128 + 4 + 4 + 16), v * 64),
         "K4": (4 * rows_words["K4"] + 4 * B + 4 * B * L, 3 * 128 * int(b.sum())),
         "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
         "K5b": (4 * rows_words["K5b"] + 8 * B + 4 * B * L, 20 * v),
-        "K6": (4 * B * L + 4 * B + 4 * B * K1, v * 4 * K1),
-        "K7": (4 * B * L + 4 * B + 4 * B * (K1 + 1), v * (4 * K1 + 32)),
+        "K6": (4 * B * L + 4 * B + 4 * B * K1, rice),
+        "K7": (4 * B * L + 4 * B + 4 * B * (K1 + 1), select),
         "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
         "K9": (sub_bytes * 128 * 2, 32 * 128 * R),
     }[key]
@@ -155,6 +185,8 @@ RECS = {
            "dctpu/kernels/select_bp.py:221"),
     "K2": ("K2 select_bp", "dctpu_torch/csrc/select.cu",
            "dctpu/kernels/select_bp.py:206"),
+    "K2-lpc": ("K2 select_lpc (LPC form)", "dctpu_torch/csrc/select.cu",
+               "dctpu/kernels/select_bp.py:206"),
     "K3": ("K3 vemit", "dctpu_torch/csrc/vemit.cu",
            "dctpu/kernels/vemit_pallas.py:116"),
     "K4": ("K4 vdec", "dctpu_torch/csrc/vdec.cu",
@@ -182,9 +214,12 @@ def check_kernels(dev):
     from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
     from dctpu_torch.kernels.pack import rice_pack, rice_pack_plain
     from dctpu_torch.kernels.rice_totals import rice_totals, rice_totals_plain
+    from dctpu_torch.config import DEFAULT_LPC_TABLES
     from dctpu_torch.kernels.select_bp import (
         adaptive_totals_bp,
         adaptive_totals_bp_plain,
+        adaptive_totals_lpc,
+        adaptive_totals_lpc_plain,
         adaptive_totals_xbp,
         adaptive_totals_xbp_plain,
     )
@@ -207,6 +242,10 @@ def check_kernels(dev):
         for key, (name, src, rep) in RECS.items()
     }
     K = K_MAX
+    # K2-lpc is held against its twin with every default table and one
+    # whose products wrap the int64 accumulator on the -2**31 samples of
+    # row 0; it is timed with the first default table
+    tables = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP_COEFFS]
     for si, (B, L) in enumerate(SHAPES):
         x, z, hist, n, k = (
             torch.from_numpy(a).to(dev) for a in kernel_inputs(B, L, 100 + si)
@@ -228,6 +267,12 @@ def check_kernels(dev):
                    lambda: adaptive_totals_xbp_plain(x, hist, n, L, K)),
             "K2": (lambda: adaptive_totals_bp(z, n, L, K),
                    lambda: adaptive_totals_bp_plain(z, n, L, K)),
+            "K2-lpc": (
+                lambda: [t for c in tables
+                         for t in adaptive_totals_lpc(x, hist, n, c, L, K)],
+                lambda: [t for c in tables
+                         for t in adaptive_totals_lpc_plain(x, hist, n, c, L, K)],
+            ),
             "K3": (lambda: vertical_emit(z, n, L),
                    lambda: vertical_emit_plain(z, n, L)),
             "K4": (lambda: (decode_vertical(rows, n, L),),
@@ -255,6 +300,10 @@ def check_kernels(dev):
                 fail(f"{key} differs from its twin at {B}x{L}")
             if (B, L) == (BENCH_BLOCKS, BENCH_LEN):
                 r = recs[key]
+                if key == "K2-lpc":
+                    c0 = tables[0]
+                    kern = lambda: adaptive_totals_lpc(x, hist, n, c0, L, K)  # noqa: E731
+                    plain = lambda: adaptive_totals_lpc_plain(x, hist, n, c0, L, K)  # noqa: E731
                 r["ms"] = time_ms(kern, 10)
                 r["plain_ms"] = time_ms(plain, 3)
                 sync = -(-L // 256) * B
@@ -275,6 +324,7 @@ def check_kernels(dev):
 
 
 def counters():
+    """Each record's wrappers: "K2" counts both of K2's forms."""
     from dctpu_torch.kernels import (
         exc_extract,
         pack,
@@ -288,38 +338,49 @@ def counters():
     )
 
     return {
-        "K1": select_bp.adaptive_totals_xbp,
-        "K2": select_bp.adaptive_totals_bp,
-        "K3": vemit.vertical_emit,
-        "K4": vdec.decode_vertical,
-        "K5a": pack.rice_pack,
-        "K5b": unpack.rice_unpack,
-        "K6": rice_totals.rice_totals,
-        "K7": select_reduce.adaptive_totals_reduce,
-        "K8": exc_extract.exc_extract,
-        "K9": transpose.grouped_bit_transpose32,
+        "K1": (select_bp.adaptive_totals_xbp,),
+        "K2": (select_bp.adaptive_totals_bp, select_bp.adaptive_totals_lpc),
+        "K2-lpc": (select_bp.adaptive_totals_lpc,),
+        "K3": (vemit.vertical_emit,),
+        "K4": (vdec.decode_vertical,),
+        "K5a": (pack.rice_pack,),
+        "K5b": (unpack.rice_unpack,),
+        "K6": (rice_totals.rice_totals,),
+        "K7": (select_reduce.adaptive_totals_reduce,),
+        "K8": (exc_extract.exc_extract,),
+        "K9": (transpose.grouped_bit_transpose32,),
     }
 
 
 def reset_counters() -> None:
-    for fn in counters().values():
-        fn.launches = 0
+    for fns in counters().values():
+        for fn in fns:
+            fn.launches = 0
 
 
 def read_counters() -> dict:
-    return {k: fn.launches for k, fn in counters().items()}
+    return {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
 
 
 # kernels each path must launch (K6: once per candidate, 6 by default), and
 # those it must not: the paths are (coder, backend)
 NEEDS = {
-    ("adaptive", None): ("K1", "K2", "K3", "K4", "K5a", "K5b"),
+    ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b"),
     ("rice", None): ("K5a", "K5b", "K6"),
     ("vertical", None): ("K3", "K4"),
-    ("adaptive", "pallas"): ("K1", "K2", "K4", "K5a", "K5b", "K8", "K9"),
+    ("adaptive", "pallas"): ("K1", "K2", "K2-lpc", "K4", "K5a", "K5b", "K8",
+                             "K9"),
     ("vertical", "pallas"): ("K4", "K8", "K9"),
 }
 NEVER = {("adaptive", "pallas"): ("K3",), ("vertical", "pallas"): ("K3",)}
+
+
+def segments() -> int:
+    """Device memory segments the caching allocator has obtained so far
+    (one cudaMalloc each)."""
+    import torch
+
+    return torch.cuda.memory_stats().get("segment.all.allocated", 0)
 
 
 def path_name(coder, backend) -> str:
@@ -348,9 +409,11 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     reset_counters()
     enc_ms, dec_ms = {}, {}
     torch.cuda.synchronize()
+    seg0 = segments()
     t0 = time.perf_counter()
     frame = compress(streams, cfg, ids, cads, device=dev, stage_ms=enc_ms,
                      backend=backend)
+    seg1 = segments()
     data = write_frame(frame)
     t1 = time.perf_counter()
     out = decompress(read_frame(data), device=dev, stage_ms=dec_ms)
@@ -370,8 +433,16 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
           f"({raw_bytes / (t1 - t0) / 1e9:.3f} GB/s), read_frame+decompress "
           f"{1e3 * (t2 - t1):.1f} ms ({raw_bytes / (t2 - t1) / 1e9:.3f} GB/s), "
           f"host clock")
-    print(f"{name} path encode stages (CUDA events, ms): "
+    print(f"{name} path encode stages (CUDA events, ms; {seg1 - seg0} new "
+          "device segments): "
           + json.dumps({k: round(v, 3) for k, v in enc_ms.items()}))
+    if (coder, backend) == ("adaptive", None):
+        # the same compress again, on the allocator's cached segments
+        again, seg2 = {}, segments()
+        compress(streams, cfg, ids, cads, device=dev, stage_ms=again)
+        print(f"{name} path encode stages, second compress ({segments() - seg2}"
+              " new device segments): "
+              + json.dumps({k: round(v, 3) for k, v in again.items()}))
     print(f"{name} path decode stages (CUDA events, ms): "
           + json.dumps({k: round(v, 3) for k, v in dec_ms.items()}))
     print(f"{name} path kernel launches: {json.dumps(launches)}", flush=True)
@@ -385,6 +456,10 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
         fail(f"kernels launched on the {name} path that it replaces: {extra}")
     if cfg.coder == "rice" and launches["K6"] != len(cfg.candidates()):
         fail(f"K6 launched {launches['K6']} times, not once per candidate")
+    n_lpc = len(cfg.candidates()) - 2
+    if cfg.coder == "adaptive" and (launches["K1"], launches["K2-lpc"]) != (1, n_lpc):
+        fail(f"K1 launched {launches['K1']} times (want 1), K2's LPC form "
+             f"{launches['K2-lpc']} (want {n_lpc})")
     return data, launches
 
 
@@ -483,6 +558,30 @@ def cli_check() -> None:
         fail("the CLI's verify failed on the card")
 
 
+def ptxas_report(log: str) -> dict:
+    """{kernel: "N registers, smem, spill"} from the nvcc -Xptxas=-v log;
+    a dct::...<Src i> template shows as "name<Src i>"."""
+    import re
+
+    out, name, spill = {}, None, ""
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            mangled = m.group(1)
+            short = re.match(r"_ZN3dct(\d+)", mangled)
+            name = (mangled[short.end():short.end() + int(short.group(1))]
+                    if short else mangled)
+            arg = re.search(r"SrcE(\d)", mangled)
+            name += f"<Src {arg.group(1)}>" if arg else ""
+        elif "spill stores" in line:
+            spill = line.strip()
+        elif "Used" in line and "registers" in line and name:
+            used = line.split("Used", 1)[1].strip()
+            out[name] = f"{used}; {spill}"
+            name = None
+    return out
+
+
 def main() -> int:
     try:
         import torch
@@ -507,9 +606,9 @@ def main() -> int:
     lib = _build.library_path()
     _build.library()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s ({lib.parent.name})")
-    for line in (lib.parent / "build.log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            print("  ptxas:", line.strip().removeprefix("ptxas info    :").strip())
+    ptxas = ptxas_report((lib.parent / "build.log").read_text())
+    for name, info in ptxas.items():
+        print(f"  ptxas: {name}: {info}")
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 

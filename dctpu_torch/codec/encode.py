@@ -6,8 +6,9 @@ single-coder selection) then :func:`emit_blocks`; its adaptive pair is
 :func:`adaptive_select` then :func:`emit_blocks`.
 
 Selection runs the exact totals kernels. Adaptive: K1 for DELTA and
-DOUBLE_DELTA, read straight from the samples, and K2 for each LPC
-candidate's zigzag values, as the TPU default path does. coder="rice": K6
+DOUBLE_DELTA and K2's LPC form for each LPC candidate, all read straight
+from the samples (the TPU default path ran K2 on each LPC candidate's
+zigzag values, derived in XLA). coder="rice": K6
 per candidate (``rice.choose_k_auto``). coder="vertical": the bit-length
 cost, plain torch (XLA on the TPU too). Emission derives the winner's
 zigzag values and runs the coder of the group: K3 plus the region
@@ -46,10 +47,10 @@ import torch
 from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import predict, rice
 from dctpu_torch.config import CodecConfig
-from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC, subs_per_block
+from dctpu_torch.constants import DELTA, LPC, subs_per_block
 from dctpu_torch.kernels.exc_extract import exc_extract
 from dctpu_torch.kernels.pack import rice_pack
-from dctpu_torch.kernels.select_bp import adaptive_totals_bp, adaptive_totals_xbp
+from dctpu_torch.kernels.select_bp import adaptive_totals_lpc, adaptive_totals_xbp
 from dctpu_torch.kernels.select_reduce import adaptive_totals_reduce
 from dctpu_torch.kernels.transpose import grouped_bit_transpose32
 from dctpu_torch.kernels.vemit import vertical_emit
@@ -128,24 +129,27 @@ def adaptive_select(
     minimum in the option order c0-RICE, c0-VERT, c1-RICE, ... wins: the
     minimum of the packed key words * (2C) + option.
 
-    The totals come from K1 and K2; from K7 for every candidate under
-    backend="reduce" (which raises ValueError for k_max > 24, where the
-    reference asserts)."""
+    The totals come from K1 and K2's LPC form, which derive the
+    residuals from x; under backend="reduce", from K7 for every candidate
+    on its zigzag residuals (which raises ValueError for k_max > 24, where
+    the reference asserts)."""
     L = x.shape[1]
-    reduce = backend == "reduce"
     shift = None
     ks, rws, vws = [], [], []
-    for ci, (pred, _) in enumerate(cfg.candidates()):
-        if not reduce and pred in (DELTA, DOUBLE_DELTA):
+    for ci, (pred, ti) in enumerate(cfg.candidates()):
+        if backend == "reduce":
+            totals, vword = adaptive_totals_reduce(
+                candidate_z(x, history, cfg, ci), n, L, cfg.k_max
+            )
+        elif pred == LPC:
+            totals, vword = adaptive_totals_lpc(
+                x, history, n, cfg.lpc_tables[ti].coeffs, L, cfg.k_max
+            )
+        else:
             if shift is None:
                 shift = adaptive_totals_xbp(x, history, n, L, cfg.k_max)
             gi = 0 if pred == DELTA else 1
             totals, vword = shift[0][gi], shift[1][gi]
-        else:
-            totals_of = adaptive_totals_reduce if reduce else adaptive_totals_bp
-            totals, vword = totals_of(
-                candidate_z(x, history, cfg, ci), n, L, cfg.k_max
-            )
         k_c, bits_c = rice.best_k(totals)
         ks.append(k_c)
         rws.append((bits_c + 31) // 32)

@@ -69,13 +69,13 @@ struct Width {
   int e;      // bit length of the largest exception value (0 if none)
 };
 
-// FORMAT §2.2 width rule, one warp (lane = candidate b): argmin over b of
-// words(b) = pw*b + ceil(n_exc/4) + vw(b) among widths with n_exc <= 16,
-// ties to the smallest b, as a packed (words*64 + b) key minimum. Same
-// integers as dctpu/kernels/vertical_xla.py _select_width.
-__device__ __forceinline__ Width select_width(const int* e_sh, int pw) {
+// FORMAT §2.2 width rule, one warp (lane = candidate b, eb = E[b] of the
+// row): argmin over b of words(b) = pw*b + ceil(n_exc/4) + vw(b) among
+// widths with n_exc <= 16, ties to the smallest b, as a packed
+// (words*64 + b) key minimum. Same integers as
+// dctpu/kernels/vertical_xla.py _select_width. All 32 lanes call it.
+__device__ __forceinline__ Width select_width(int eb, int pw) {
   const int lane = threadIdx.x & 31;
-  const int eb = e_sh[lane];
   const int blmax = __popc(__ballot_sync(kFull, eb > 0));
   const int e_b = max(blmax - lane, 0);
   const int vw = eb > 0 ? min(eb, (e_b + 1) >> 1) : 0;
@@ -86,9 +86,15 @@ __device__ __forceinline__ Width select_width(const int* e_sh, int pw) {
   Width w;
   w.b = key & 63;
   w.words = key >> 6;
-  w.n_exc = w.b < 32 ? e_sh[w.b] : 0;
+  const int at_b = __shfl_sync(kFull, eb, w.b & 31);
+  w.n_exc = w.b < 32 ? at_b : 0;
   w.e = w.n_exc > 0 ? blmax - w.b : 0;
   return w;
+}
+
+// The width rule on an exceed table in shared memory (e_sh[b] = E[b]).
+__device__ __forceinline__ Width select_width(const int* e_sh, int pw) {
+  return select_width(e_sh[threadIdx.x & 31], pw);
 }
 
 }  // namespace dct

@@ -1,122 +1,276 @@
-// K1, K2, K6 and K7: exact selection totals (FORMAT §4, §4.1) per block.
-// K7 (select_reduce_kernel, below) has its own design, described there.
+// K1 and K2: exact adaptive-selection totals (FORMAT §4.1), per block and
+// candidate: the RICE coded-bit total for every k in [0, k_max], then the
+// exact VERTICAL word count (the width rule summed over the block's
+// 128-sample rows). K6 and K7 (below) have designs of their own.
 //
 // Replaces dctpu/kernels/select_bp.py _xbp_kernel (K1: DELTA and
-// DOUBLE_DELTA candidates derived from raw samples) and _bp_kernel (K2: one
-// candidate's zigzag values), and dctpu/kernels/select_pallas.py
-// _totals_kernel (K6: K2's RICE half alone, for the coder="rice" k
-// choice). For each candidate and block the output row holds the exact RICE
-// coded-bit total for every k in [0, k_max] and, last (K1 and K2 only), the
-// exact VERTICAL word count (the width rule summed over the block's
-// sub-block rows). The three share one kernel template: VERT switches the
-// VERTICAL word count on.
+// DOUBLE_DELTA derived from the raw samples) and _bp_kernel (K2: one
+// candidate's zigzag values). K2 has a second entry point that derives one
+// LPC candidate's residuals from the raw samples in the kernel; the TPU
+// kernel left LPC to XLA, because s64 was wrong in Mosaic.
 //
-// What bounds it on the card: one read of the block (16 KiB at
-// block_len 4096) against ~4 integer ops per sample and k for the RICE
-// totals, and 32 warp votes per row and candidate for the exceed table.
-// It is compute-bound, not memory-bound (K6 as well: ~4 ops per sample
-// and k against one 4-byte read per sample). Design: one thread block of 128
-// threads per codec block walks the block's rows, so a block's totals are
-// reduced inside the thread block (no atomics, no second pass). The RICE
-// totals are summed per sample from the definition
-// L(k) = sum_t (q_t < 16 ? q_t + 1 + k : 48) -- the same integers as the TPU
-// kernel's plane identity -- in registers, and reduced once per block.
+// The arithmetic. With bl the bit length of z, C[b] = #{samples with
+// bl = b} and S_j[b] = #{samples with bl = b whose bit b-1-j is set}
+// (j = 1..3, the three bits below the leading one), for every k
+//   L(k) = sum_t (z>>k < 16 ? (z>>k) + 1 + k : 48)
+//        = 48 G + (k+1) (n - G)
+//          + sum_{d=1..4} (2^(d-1) C[k+d] + sum_{j=1..d-1} 2^(d-1-j) S_j[k+d])
+// with G = #{bl > k+4}: z>>k < 16 exactly when bl <= k+4, and for
+// bl = k+d, z>>k is the leading one and the d-1 bits below it. The
+// VERTICAL exceed table of a row, E[b] = #{bl > b}, is the suffix sum of
+// the row's C. One histogram per row and candidate (four counters per bit
+// length) gives both; the per-k work leaves the sample loop for the
+// block's epilogue.
+//
+// What bounds it on the card: one read of the block (16 KiB at block_len
+// 4096) against ~9 integer ops per sample and candidate (bit length, the
+// three bits, four counts; the x forms add the residual) and ~330 per row
+// for the width rule: bytes, by the count of chip_smoke.py work().
+// Design: a thread block of kRowWarps warps per codec block; warp w takes
+// rows w, w + kRowWarps, ..., lane c holding samples 32i + c
+// (coalesced loads); rows past n are skipped (they add nothing). Per
+// sample one atomicAdd into the warp's shared row histogram, the four
+// counters packed as the bytes of one word (a row adds at most 128 to a
+// counter, so no field carries into the next); z = 0 is not counted (C[0]
+// is n less the rest). Per row, lane b takes bin b+1 into the block's
+// counters in registers, forms E[b] by a 5-step shuffle suffix scan and
+// runs bitplane.cuh's select_width on it: no block barrier inside the row
+// loop. The x forms stage each row and its four preceding samples (or the
+// history) in the warp's shared memory, so that lag m is a shifted read;
+// the LPC accumulator wraps as uint64_t, then takes an arithmetic >> 16 as
+// int64_t. Epilogue: one __syncthreads, then warp c sums the warps'
+// counters and lane k forms L(k) from the identity with shuffles. No
+// atomics across thread blocks, no second pass.
 #include "bitplane.cuh"
 
 namespace dct {
 
-template <int NC, bool FROM_X, bool VERT>
+constexpr int kRowWarps = 4;
+
+// The source of the candidates' zigzag values.
+enum class Src { kZigzag, kDeltas, kLpc };
+
+struct Lpc {
+  int c0, c1, c2, c3;  // Q16 coefficients, int32 as in the frame
+};
+
+// Histogram increment of a nonzero z with lz = __clz(z): 1 in byte 0 (C),
+// bits b-2, b-3, b-4 of z in bytes 1..3 (S_1..S_3). After z << lz the
+// leading one is bit 31 and the three bits t follow it; the multiply
+// places copies of t at bits 6, 15 and 24, which do not overlap.
+__device__ __forceinline__ uint32_t length_inc(uint32_t z, int lz) {
+  const uint32_t t = ((z << lz) >> 28) & 7u;
+  return ((t * 0x01008040u) & 0x01010100u) | 1u;
+}
+
+// Lane b's value of v at bin b + d (v held one bin per lane), 0 past bin 32.
+__device__ __forceinline__ int bin_above(int v, int d) {
+  const int t = __shfl_down_sync(kFull, v, d);
+  return (threadIdx.x & 31) + d < 32 ? t : 0;
+}
+
+// E[lane] = sum of v over lanes >= lane.
+__device__ __forceinline__ int suffix_sum(int v) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) v += bin_above(v, d);
+  return v;
+}
+
+template <Src SRC>
+__global__ void __launch_bounds__(kRowWarps * 32)
+select_lengths_kernel(const int32_t* __restrict__ src,
+                      const int32_t* __restrict__ hist,
+                      const int32_t* __restrict__ n,
+                      int32_t* __restrict__ out, int block_len, int k_max,
+                      Lpc lpc) {
+  constexpr int NC = SRC == Src::kDeltas ? 2 : 1;
+  constexpr bool FROM_X = SRC != Src::kZigzag;
+  __shared__ uint32_t bins[kRowWarps][NC][32];  // the row's, bl = b at b-1
+  __shared__ int32_t stage[kRowWarps][FROM_X ? 4 + kSub : 1];
+  __shared__ int red[kRowWarps][NC][4][32];     // block counters per warp
+  __shared__ int vred[kRowWarps][NC];
+
+  const int blk = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nb = max(0, min(n[blk], block_len));
+  const int32_t* row = src + static_cast<size_t>(blk) * block_len;
+
+  int cnt[NC][4];  // bin lane+1 of the block: C, S_1, S_2, S_3
+  int vwords[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    bins[warp][c][lane] = 0;
+    vwords[c] = 0;
+#pragma unroll
+    for (int f = 0; f < 4; ++f) cnt[c][f] = 0;
+  }
+  __syncwarp();
+
+  const int rows = (nb + kSub - 1) / kSub;
+  for (int s = warp; s < rows; s += kRowWarps) {
+    const int base = s * kSub;
+    uint32_t z[NC][kWarps];
+    if constexpr (SRC == Src::kZigzag) {
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        const int t = base + 32 * i + lane;
+        z[0][i] = t < nb ? static_cast<uint32_t>(row[t]) : 0u;
+      }
+    } else {
+      // st[4 + j] = x_{base + j}; st[4 - m] = x_{base - m}, x_{-m} =
+      // history[m - 1]
+      int32_t* st = stage[warp];
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        const int t = base + 32 * i + lane;
+        st[4 + 32 * i + lane] = t < nb ? row[t] : 0;
+      }
+      if (lane < 4) {
+        const int t = base - 4 + lane;
+        st[lane] = t >= 0 ? row[t] : hist[blk * 4 - 1 - t];
+      }
+      __syncwarp();
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        const int j = 4 + 32 * i + lane;
+        const bool valid = base + 32 * i + lane < nb;
+        // wrapping int32 residuals, as predict.residuals_for_candidate
+        const uint32_t x0 = static_cast<uint32_t>(st[j]);
+        const uint32_t x1 = static_cast<uint32_t>(st[j - 1]);
+        const uint32_t x2 = static_cast<uint32_t>(st[j - 2]);
+        if constexpr (SRC == Src::kDeltas) {
+          const uint32_t d = x0 - x1;
+          z[0][i] = valid ? zigzag(static_cast<int32_t>(d)) : 0u;
+          z[1][i] = valid ? zigzag(static_cast<int32_t>(d - (x1 - x2))) : 0u;
+        } else {
+          // each product is exact in int64; the sum wraps mod 2^64
+          const uint64_t acc =
+              static_cast<uint64_t>(static_cast<int64_t>(lpc.c0) *
+                                    static_cast<int32_t>(x1)) +
+              static_cast<uint64_t>(static_cast<int64_t>(lpc.c1) *
+                                    static_cast<int32_t>(x2)) +
+              static_cast<uint64_t>(static_cast<int64_t>(lpc.c2) * st[j - 3]) +
+              static_cast<uint64_t>(static_cast<int64_t>(lpc.c3) * st[j - 4]);
+          const uint32_t pred =
+              static_cast<uint32_t>(static_cast<int64_t>(acc) >> 16);
+          z[0][i] = valid ? zigzag(static_cast<int32_t>(x0 - pred)) : 0u;
+        }
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < NC; ++c)
+#pragma unroll
+      for (int i = 0; i < kWarps; ++i) {
+        const uint32_t v = z[c][i];
+        if (v) {
+          const int lz = __clz(static_cast<int>(v));
+          atomicAdd(&bins[warp][c][31 - lz], length_inc(v, lz));
+        }
+      }
+    __syncwarp();
+    const int pw = plane_words(s, block_len);
+#pragma unroll
+    for (int c = 0; c < NC; ++c) {
+      const uint32_t v = bins[warp][c][lane];
+      bins[warp][c][lane] = 0;
+      const int here = static_cast<int>(v & 0xffu);
+      cnt[c][0] += here;
+      cnt[c][1] += static_cast<int>((v >> 8) & 0xffu);
+      cnt[c][2] += static_cast<int>((v >> 16) & 0xffu);
+      cnt[c][3] += static_cast<int>(v >> 24);
+      vwords[c] += select_width(suffix_sum(here), pw).words;
+    }
+    __syncwarp();  // bins and stage are rewritten by the next row
+  }
+
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+#pragma unroll
+    for (int f = 0; f < 4; ++f) red[warp][c][f][lane] = cnt[c][f];
+    if (lane == 0) vred[warp][c] = vwords[c];
+  }
+  __syncthreads();
+  if (warp < NC) {
+    const int c = warp;
+    int C = 0, S1 = 0, S2 = 0, S3 = 0, vw = 0;
+#pragma unroll
+    for (int w = 0; w < kRowWarps; ++w) {
+      C += red[w][c][0][lane];
+      S1 += red[w][c][1][lane];
+      S2 += red[w][c][2][lane];
+      S3 += red[w][c][3][lane];
+      vw += vred[w][c];
+    }
+    // lane k: bin k+d is d-1 lanes up; G = E[k+4]
+    const int k = lane;
+    const int G = bin_above(suffix_sum(C), 4);
+    const int t = 48 * G + (k + 1) * (nb - G)
+                + C + 2 * bin_above(C, 1) + 4 * bin_above(C, 2)
+                + 8 * bin_above(C, 3)
+                + bin_above(S1, 1) + 2 * bin_above(S1, 2)
+                + 4 * bin_above(S1, 3)
+                + bin_above(S2, 2) + 2 * bin_above(S2, 3)
+                + bin_above(S3, 3);
+    int32_t* o = out + (static_cast<size_t>(blk) * NC + c) * (k_max + 2);
+    if (k <= k_max) o[k] = t;
+    if (lane == 0) o[k_max + 1] = vw;
+  }
+}
+
+// K6: the exact RICE totals alone (the coder="rice" k choice). Replaces
+// dctpu/kernels/select_pallas.py _totals_kernel. Per sample and k from the
+// definition L(k) = sum_t (q_t < 16 ? q_t + 1 + k : 48), q_t = z_t >> k,
+// in registers. What bounds it on the card: the function needs one 4-byte
+// read per sample against ~9 integer ops (K1 and K2's count): bytes; this
+// kernel does ~4 ops per sample and k, so instruction issue sets its time.
+// One thread block of 128 threads per codec block walks the block's rows;
+// the totals are reduced inside the thread block (no atomics, no second
+// pass).
 __global__ void __launch_bounds__(kSub)
-select_totals_kernel(const int32_t* __restrict__ src,
-                     const int32_t* __restrict__ hist,
-                     const int32_t* __restrict__ n,
-                     int32_t* __restrict__ out, int block_len, int k_max) {
-  __shared__ int part[kWarps][32];
-  __shared__ int e_sh[32];
-  __shared__ int red[kWarps][NC][kMaxK];
+rice_totals_kernel(const int32_t* __restrict__ z,
+                   const int32_t* __restrict__ n,
+                   int32_t* __restrict__ out, int block_len, int k_max) {
+  __shared__ int red[kWarps][kMaxK];
 
   const int blk = blockIdx.x;
   const int tid = threadIdx.x;
   const int lane = tid & 31;
   const int warp = tid >> 5;
   const int nb = min(n[blk], block_len);
-  const int32_t* row = src + static_cast<size_t>(blk) * block_len;
-  int32_t h0 = 0, h1 = 0;
-  if constexpr (FROM_X) {
-    h0 = hist[blk * 4 + 0];
-    h1 = hist[blk * 4 + 1];
-  }
+  const int32_t* row = z + static_cast<size_t>(blk) * block_len;
 
-  int acc[NC][kMaxK];
+  int acc[kMaxK];
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) acc[c][k] = 0;
-  int vwords[NC];
-#pragma unroll
-  for (int c = 0; c < NC; ++c) vwords[c] = 0;
+  for (int k = 0; k < kMaxK; ++k) acc[k] = 0;
 
   const int subs = (block_len + kSub - 1) / kSub;
   for (int s = 0; s < subs; ++s) {
     const int i = s * kSub + tid;
-    const bool valid = i < nb;
-    uint32_t z[NC];
-    if constexpr (FROM_X) {
-      z[0] = 0;
-      z[1] = 0;
-      if (valid) {
-        // wrapping int32 residuals, as predict.residuals_for_candidate
-        const uint32_t x0 = static_cast<uint32_t>(row[i]);
-        const uint32_t x1 = static_cast<uint32_t>(i >= 1 ? row[i - 1] : h0);
-        const uint32_t x2 = static_cast<uint32_t>(
-            i >= 2 ? row[i - 2] : (i == 1 ? h0 : h1));
-        const uint32_t d = x0 - x1;
-        z[0] = zigzag(static_cast<int32_t>(d));
-        z[1] = zigzag(static_cast<int32_t>(d - (x1 - x2)));
-      }
-    } else {
-      z[0] = valid ? static_cast<uint32_t>(row[i]) : 0u;
-    }
+    if (i < nb) {
+      const uint32_t v = static_cast<uint32_t>(row[i]);
 #pragma unroll
-    for (int c = 0; c < NC; ++c) {
-      if (valid) {
-#pragma unroll
-        for (int k = 0; k < kMaxK; ++k) {
-          if (k <= k_max) {
-            const uint32_t q = z[c] >> k;
-            acc[c][k] += q >= 16u ? 48 : static_cast<int>(q) + 1 + k;
-          }
+      for (int k = 0; k < kMaxK; ++k) {
+        if (k <= k_max) {
+          const uint32_t q = v >> k;
+          acc[k] += q >= 16u ? 48 : static_cast<int>(q) + 1 + k;
         }
-      }
-      if constexpr (VERT) {
-        exceed_table(bit_length(z[c]), part, e_sh);
-        if (warp == 0)
-          vwords[c] += select_width(e_sh, plane_words(s, block_len)).words;
       }
     }
   }
 
 #pragma unroll
-  for (int c = 0; c < NC; ++c)
-#pragma unroll
-    for (int k = 0; k < kMaxK; ++k) {
-      const int v = __reduce_add_sync(kFull, acc[c][k]);
-      if (lane == 0) red[warp][c][k] = v;
-    }
+  for (int k = 0; k < kMaxK; ++k) {
+    const int v = __reduce_add_sync(kFull, acc[k]);
+    if (lane == 0) red[warp][k] = v;
+  }
   __syncthreads();
-  const int width = k_max + (VERT ? 2 : 1);
-  int32_t* o = out + static_cast<size_t>(blk) * NC * width;
-  if (tid < NC * (k_max + 1)) {
-    const int c = tid / (k_max + 1);
-    const int k = tid % (k_max + 1);
+  if (tid <= k_max) {
     int t = 0;
 #pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += red[w][c][k];
-    o[c * width + k] = t;
-  }
-  if (VERT && tid == 0) {
-#pragma unroll
-    for (int c = 0; c < NC; ++c) o[c * width + k_max + 1] = vwords[c];
+    for (int w = 0; w < kWarps; ++w) t += red[w][tid];
+    out[static_cast<size_t>(blk) * (k_max + 1) + tid] = t;
   }
 }
 
@@ -127,8 +281,10 @@ select_totals_kernel(const int32_t* __restrict__ src,
 // over the valid samples, then the exceed table E[b] = #{bit length > b} as
 // 32 warp sums and the FORMAT §2.2 width rule on it.
 //
-// What bounds it on the card: ~4 integer ops per sample and k against one
-// 4-byte read per sample, like K2: operations. Design: one thread block of
+// What bounds it on the card: the function needs one 4-byte read per
+// sample against ~9 integer ops (K1 and K2's count): bytes. This kernel
+// does ~4 ops per sample and k instead, so instruction issue sets its
+// time. Design: one thread block of
 // kReduceWarps warps per codec block; each warp takes every kReduceWarps-th
 // sub-block row, lane c holding samples 32i + c (coalesced loads). The
 // TPU's pair- and quad-packed lane sums (which only cut Mosaic lane
@@ -213,11 +369,12 @@ select_reduce_kernel(const int32_t* __restrict__ z,
 extern "C" int dct_select_xbp(const void* x, const void* hist, const void* n,
                               void* out, int num_blocks, int block_len,
                               int k_max, void* stream) {
-  dct::select_totals_kernel<2, true, true>
-      <<<num_blocks, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
+  dct::select_lengths_kernel<dct::Src::kDeltas>
+      <<<num_blocks, dct::kRowWarps * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(x), static_cast<const int32_t*>(hist),
           static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
-          block_len, k_max);
+          block_len, k_max, dct::Lpc{});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -225,11 +382,27 @@ extern "C" int dct_select_xbp(const void* x, const void* hist, const void* n,
 extern "C" int dct_select_bp(const void* z, const void* n, void* out,
                              int num_blocks, int block_len, int k_max,
                              void* stream) {
-  dct::select_totals_kernel<1, false, true>
-      <<<num_blocks, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
+  dct::select_lengths_kernel<dct::Src::kZigzag>
+      <<<num_blocks, dct::kRowWarps * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(
           static_cast<const int32_t*>(z), nullptr,
           static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
-          block_len, k_max);
+          block_len, k_max, dct::Lpc{});
+  return static_cast<int>(cudaGetLastError());
+}
+
+// K2, LPC form: x [B, L] raw int32 samples, hist [B, 4] and one table's
+// Q16 coefficients c0..c3 -> out [B, k_max + 2] of that LPC candidate.
+extern "C" int dct_select_lpc(const void* x, const void* hist, const void* n,
+                              void* out, int num_blocks, int block_len,
+                              int k_max, int c0, int c1, int c2, int c3,
+                              void* stream) {
+  dct::select_lengths_kernel<dct::Src::kLpc>
+      <<<num_blocks, dct::kRowWarps * 32, 0,
+         static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(x), static_cast<const int32_t*>(hist),
+          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
+          block_len, k_max, dct::Lpc{c0, c1, c2, c3});
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -249,10 +422,9 @@ extern "C" int dct_select_reduce(const void* z, const void* n, void* out,
 extern "C" int dct_rice_totals(const void* z, const void* n, void* out,
                                int num_blocks, int block_len, int k_max,
                                void* stream) {
-  dct::select_totals_kernel<1, false, false>
-      <<<num_blocks, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(z), nullptr,
-          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
-          block_len, k_max);
+  dct::rice_totals_kernel<<<num_blocks, dct::kSub, 0,
+                            static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(z), static_cast<const int32_t*>(n),
+      static_cast<int32_t*>(out), block_len, k_max);
   return static_cast<int>(cudaGetLastError());
 }

@@ -42,6 +42,7 @@ _I = ctypes.c_int
 SIGNATURES = {
     "dct_select_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dct_select_bp": (_P, _P, _P, _I, _I, _I, _P),
+    "dct_select_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dct_vemit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dct_vdec": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),

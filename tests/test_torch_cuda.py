@@ -1,4 +1,5 @@
-"""The CUDA kernels K1-K9 against their plain twins, on the card.
+"""The CUDA kernels K1-K9 (and K2's LPC form) against their plain twins,
+on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -13,7 +14,7 @@ import torch
 
 from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import api, encode
-from dctpu_torch.config import CodecConfig, LpcTable
+from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
 from dctpu_torch.corpus import synth_corpus
 from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
@@ -61,6 +62,10 @@ def _same(got, want):
         assert torch.equal(g.cpu(), w.cpu())
 
 
+# every product is 2**62 on the -2**31 samples of row 0: the int64 sum wraps
+WRAP = (-(2**31),) * 4
+
+
 @pytest.mark.parametrize("L", [4096, 300, 100, 129])
 def test_kernels_match_twins_on_card(cuda, L):
     z, x, h, n, _ = (t.to(cuda) for t in _inputs(L, 7))
@@ -68,6 +73,9 @@ def test_kernels_match_twins_on_card(cuda, L):
           select_bp.adaptive_totals_xbp_plain(x, h, n, L, 24))
     _same(select_bp.adaptive_totals_bp(z, n, L, 24),
           select_bp.adaptive_totals_bp_plain(z, n, L, 24))
+    for coeffs in [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP]:
+        _same(select_bp.adaptive_totals_lpc(x, h, n, coeffs, L, 24),
+              select_bp.adaptive_totals_lpc_plain(x, h, n, coeffs, L, 24))
     emitted = vemit.vertical_emit(z, n, L)
     _same(emitted, vemit.vertical_emit_plain(z, n, L))
     planes, b, _, n_exc, e, pos_words, vals = emitted
@@ -151,7 +159,7 @@ def test_backend_paths_on_card(cuda):
     assert set(read_frame(want).blocks.coder_arr().tolist()) == {0, 1}
     counted = (vemit.vertical_emit, exc_extract.exc_extract,
                transpose.grouped_bit_transpose32, select_bp.adaptive_totals_xbp,
-               select_bp.adaptive_totals_bp, pack.rice_pack)
+               select_bp.adaptive_totals_lpc, pack.rice_pack)
     for backend in ("pallas", "xla"):
         for fn in counted:
             fn.launches = 0
@@ -167,11 +175,12 @@ def test_backend_paths_on_card(cuda):
     t = [torch.from_numpy(a).to(cuda) for a in (x, n, h)]
     auto = encode.adaptive_select(*t, cfg)
     for fn in (select_bp.adaptive_totals_xbp, select_bp.adaptive_totals_bp,
-               select_reduce.adaptive_totals_reduce):
+               select_bp.adaptive_totals_lpc, select_reduce.adaptive_totals_reduce):
         fn.launches = 0
     _same(encode.adaptive_select(*t, cfg, backend="reduce"), auto)
     assert select_reduce.adaptive_totals_reduce.launches == len(cfg.candidates())
     assert select_bp.adaptive_totals_xbp.launches == 0
     assert select_bp.adaptive_totals_bp.launches == 0
+    assert select_bp.adaptive_totals_lpc.launches == 0
     with pytest.raises(ValueError, match="unknown kernel backend"):
         api.compress(streams, cfg, ids, cads, device=cuda, backend="reduce")
