@@ -12,14 +12,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      with CUDA events beside each kernel's bound; K2 in both its forms,
      on zigzag values and on the raw samples with an LPC table ("K2-lpc":
      each default table and one whose products wrap the int64
-     accumulator);
+     accumulator), and K6 in its three: on zigzag values, on the raw
+     samples for DELTA + DOUBLE_DELTA ("K6-xbp") and for an LPC table
+     ("K6-lpc", the same tables);
   3. drives compress -> write_frame -> read_frame -> decompress for the
      adaptive, rice and vertical coders at the bench geometry (8192 blocks
      x 4096 int32 = 128 MiB, resident on the card), each with the launch
      counters set to 0 just before it and read just after: every round
-     trip bit-exact, every kernel of each path launched (K6 once per
-     candidate on the rice path; K1 once and K2's LPC form once per LPC
-     candidate on the adaptive paths), with the device segments each
+     trip bit-exact, every kernel of each path launched (K6-xbp once,
+     K6-lpc once per LPC candidate and K6's z form never on the rice path;
+     K1 once and K2's LPC form once per LPC candidate on the adaptive
+     paths), with the device segments each
      compress obtained from the allocator (and, for the adaptive path, the
      stage times of a second compress on the cached segments); then, on
      the same corpus, the adaptive selection under backend="reduce" (K7
@@ -152,7 +155,8 @@ DELTAS_OPS, LPC_OPS = 3 + 2 * 3, 2 * (4 + 3 + 1) + 1 + 3
 def work(key, B, L, n, b, rows_words):
     """(bytes, ops) of kernel `key` on this run's inputs. ops count the
     integer work that the function needs: the selection totals as above
-    (K1, K2, K2-lpc, K6 without the VERTICAL words, K7), 32 per valid
+    (K1, K2, K2-lpc, K7; K6, K6-xbp, K6-lpc without the VERTICAL words),
+    32 per valid
     sample for K3's bit planes, 3 per decoded plane bit for K4, ~20 per
     codeword for the RICE pack (codeword, scan, ORs) and unpack (window,
     count, extract), 4 per sub-block word for K8 (shift, compare, vote,
@@ -174,6 +178,10 @@ def work(key, B, L, n, b, rows_words):
         "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
         "K5b": (4 * rows_words["K5b"] + 8 * B + 4 * B * L, 20 * v),
         "K6": (4 * B * L + 4 * B + 4 * B * K1, rice),
+        "K6-xbp": (4 * B * L + 16 * B + 4 * B + 8 * B * K1,
+                   2 * rice + v * DELTAS_OPS),
+        "K6-lpc": (4 * B * L + 16 * B + 4 * B + 4 * B * K1,
+                   rice + v * LPC_OPS),
         "K7": (4 * B * L + 4 * B + 4 * B * (K1 + 1), select),
         "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
         "K9": (sub_bytes * 128 * 2, 32 * 128 * R),
@@ -197,6 +205,11 @@ RECS = {
             "dctpu/kernels/attic/unpack_pallas.py:56"),
     "K6": ("K6 rice_totals", "dctpu_torch/csrc/select.cu",
            "dctpu/kernels/select_pallas.py:72"),
+    "K6-xbp": ("K6 rice_totals_xbp (DELTA + DOUBLE_DELTA form)",
+               "dctpu_torch/csrc/select.cu",
+               "dctpu/kernels/select_pallas.py:72"),
+    "K6-lpc": ("K6 rice_totals_lpc (LPC form)", "dctpu_torch/csrc/select.cu",
+               "dctpu/kernels/select_pallas.py:72"),
     "K7": ("K7 select_reduce", "dctpu_torch/csrc/select.cu",
            "dctpu/kernels/select_pallas.py:79"),
     "K8": ("K8 exc_extract", "dctpu_torch/csrc/exc.cu",
@@ -213,7 +226,14 @@ def check_kernels(dev):
     from dctpu_torch._bits import to_i32
     from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
     from dctpu_torch.kernels.pack import rice_pack, rice_pack_plain
-    from dctpu_torch.kernels.rice_totals import rice_totals, rice_totals_plain
+    from dctpu_torch.kernels.rice_totals import (
+        rice_totals,
+        rice_totals_lpc,
+        rice_totals_lpc_plain,
+        rice_totals_plain,
+        rice_totals_xbp,
+        rice_totals_xbp_plain,
+    )
     from dctpu_torch.config import DEFAULT_LPC_TABLES
     from dctpu_torch.kernels.select_bp import (
         adaptive_totals_bp,
@@ -242,9 +262,9 @@ def check_kernels(dev):
         for key, (name, src, rep) in RECS.items()
     }
     K = K_MAX
-    # K2-lpc is held against its twin with every default table and one
-    # whose products wrap the int64 accumulator on the -2**31 samples of
-    # row 0; it is timed with the first default table
+    # K2-lpc and K6-lpc are held against their twins with every default
+    # table and one whose products wrap the int64 accumulator on the
+    # -2**31 samples of row 0; they are timed with the first default table
     tables = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP_COEFFS]
     for si, (B, L) in enumerate(SHAPES):
         x, z, hist, n, k = (
@@ -283,6 +303,13 @@ def check_kernels(dev):
                     lambda: (unpack(rice_rows, k, n, L),)),
             "K6": (lambda: (rice_totals(z, n, L, K),),
                    lambda: (rice_totals_plain(z, n, L, K),)),
+            "K6-xbp": (lambda: (rice_totals_xbp(x, hist, n, L, K),),
+                       lambda: (rice_totals_xbp_plain(x, hist, n, L, K),)),
+            "K6-lpc": (
+                lambda: [rice_totals_lpc(x, hist, n, c, L, K) for c in tables],
+                lambda: [rice_totals_lpc_plain(x, hist, n, c, L, K)
+                         for c in tables],
+            ),
             "K7": (lambda: adaptive_totals_reduce(z, n, L, K),
                    lambda: adaptive_totals_reduce_plain(z, n, L, K)),
             "K8": (lambda: exc_extract(zs, b_exc),
@@ -300,10 +327,13 @@ def check_kernels(dev):
                 fail(f"{key} differs from its twin at {B}x{L}")
             if (B, L) == (BENCH_BLOCKS, BENCH_LEN):
                 r = recs[key]
+                c0 = tables[0]
                 if key == "K2-lpc":
-                    c0 = tables[0]
                     kern = lambda: adaptive_totals_lpc(x, hist, n, c0, L, K)  # noqa: E731
                     plain = lambda: adaptive_totals_lpc_plain(x, hist, n, c0, L, K)  # noqa: E731
+                if key == "K6-lpc":
+                    kern = lambda: rice_totals_lpc(x, hist, n, c0, L, K)  # noqa: E731
+                    plain = lambda: rice_totals_lpc_plain(x, hist, n, c0, L, K)  # noqa: E731
                 r["ms"] = time_ms(kern, 10)
                 r["plain_ms"] = time_ms(plain, 3)
                 sync = -(-L // 256) * B
@@ -324,7 +354,8 @@ def check_kernels(dev):
 
 
 def counters():
-    """Each record's wrappers: "K2" counts both of K2's forms."""
+    """Each record's wrappers: "K2" counts both of K2's forms, "K6" all
+    three of K6's."""
     from dctpu_torch.kernels import (
         exc_extract,
         pack,
@@ -345,7 +376,10 @@ def counters():
         "K4": (vdec.decode_vertical,),
         "K5a": (pack.rice_pack,),
         "K5b": (unpack.rice_unpack,),
-        "K6": (rice_totals.rice_totals,),
+        "K6": (rice_totals.rice_totals, rice_totals.rice_totals_xbp,
+               rice_totals.rice_totals_lpc),
+        "K6-xbp": (rice_totals.rice_totals_xbp,),
+        "K6-lpc": (rice_totals.rice_totals_lpc,),
         "K7": (select_reduce.adaptive_totals_reduce,),
         "K8": (exc_extract.exc_extract,),
         "K9": (transpose.grouped_bit_transpose32,),
@@ -362,11 +396,11 @@ def read_counters() -> dict:
     return {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
 
 
-# kernels each path must launch (K6: once per candidate, 6 by default), and
-# those it must not: the paths are (coder, backend)
+# kernels each path must launch, and those it must not: the paths are
+# (coder, backend)
 NEEDS = {
     ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b"),
-    ("rice", None): ("K5a", "K5b", "K6"),
+    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc"),
     ("vertical", None): ("K3", "K4"),
     ("adaptive", "pallas"): ("K1", "K2", "K2-lpc", "K4", "K5a", "K5b", "K8",
                              "K9"),
@@ -454,9 +488,13 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     extra = [k for k in NEVER.get((cfg.coder, backend), ()) if launches[k]]
     if extra:
         fail(f"kernels launched on the {name} path that it replaces: {extra}")
-    if cfg.coder == "rice" and launches["K6"] != len(cfg.candidates()):
-        fail(f"K6 launched {launches['K6']} times, not once per candidate")
     n_lpc = len(cfg.candidates()) - 2
+    if cfg.coder == "rice":
+        z_form = launches["K6"] - launches["K6-xbp"] - launches["K6-lpc"]
+        if (launches["K6-xbp"], launches["K6-lpc"], z_form) != (1, n_lpc, 0):
+            fail(f"K6-xbp launched {launches['K6-xbp']} times (want 1), "
+                 f"K6-lpc {launches['K6-lpc']} (want {n_lpc}), K6's z form "
+                 f"{z_form} (want 0)")
     if cfg.coder == "adaptive" and (launches["K1"], launches["K2-lpc"]) != (1, n_lpc):
         fail(f"K1 launched {launches['K1']} times (want 1), K2's LPC form "
              f"{launches['K2-lpc']} (want {n_lpc})")
@@ -560,7 +598,7 @@ def cli_check() -> None:
 
 def ptxas_report(log: str) -> dict:
     """{kernel: "N registers, smem, spill"} from the nvcc -Xptxas=-v log;
-    a dct::...<Src i> template shows as "name<Src i>"."""
+    a dct::...<Src i, VERT> template shows as "name<Src i, true|false>"."""
     import re
 
     out, name, spill = {}, None, ""
@@ -571,8 +609,10 @@ def ptxas_report(log: str) -> dict:
             short = re.match(r"_ZN3dct(\d+)", mangled)
             name = (mangled[short.end():short.end() + int(short.group(1))]
                     if short else mangled)
-            arg = re.search(r"SrcE(\d)", mangled)
-            name += f"<Src {arg.group(1)}>" if arg else ""
+            arg = re.search(r"SrcE(\d)ELb(\d)", mangled)
+            if arg:
+                vert = "true" if arg.group(2) == "1" else "false"
+                name += f"<Src {arg.group(1)}, {vert}>"
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -633,9 +673,10 @@ def main() -> int:
         print(f"{coder}/pallas frame byte-identical to the {coder} frame",
               flush=True)
     # the count of the path each kernel was ported for: K1-K4 the adaptive
-    # path, K5a, K5b and K6 the rice path, K7 the "reduce" selection, K8 and
-    # K9 the adaptive path under backend="pallas"
-    home = {"K5a": "rice", "K5b": "rice", "K6": "rice",
+    # path, K5a, K5b and K6's forms the rice path, K7 the "reduce"
+    # selection, K8 and K9 the adaptive path under backend="pallas"
+    home = {"K5a": "rice", "K5b": "rice", "K6": "rice", "K6-xbp": "rice",
+            "K6-lpc": "rice",
             "K7": "adaptive/reduce-select", "K8": "adaptive/pallas",
             "K9": "adaptive/pallas"}
     for key, r in recs.items():

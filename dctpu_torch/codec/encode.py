@@ -8,9 +8,12 @@ single-coder selection) then :func:`emit_blocks`; its adaptive pair is
 Selection runs the exact totals kernels. Adaptive: K1 for DELTA and
 DOUBLE_DELTA and K2's LPC form for each LPC candidate, all read straight
 from the samples (the TPU default path ran K2 on each LPC candidate's
-zigzag values, derived in XLA). coder="rice": K6
-per candidate (``rice.choose_k_auto``). coder="vertical": the bit-length
-cost, plain torch (XLA on the TPU too). Emission derives the winner's
+zigzag values, derived in XLA). coder="rice": K6's x forms, one launch
+for DELTA and DOUBLE_DELTA and one per LPC candidate, also read straight
+from the samples (the TPU ran K6 on each candidate's zigzag values,
+``rice.choose_k_auto``).
+coder="vertical": the bit-length cost of each candidate's zigzag values,
+plain torch (XLA on the TPU too). Emission derives the winner's
 zigzag values and runs the coder of the group: K3 plus the region
 assembly for VERTICAL, K5a for RICE.
 
@@ -50,6 +53,7 @@ from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import DELTA, LPC, subs_per_block
 from dctpu_torch.kernels.exc_extract import exc_extract
 from dctpu_torch.kernels.pack import rice_pack
+from dctpu_torch.kernels.rice_totals import rice_totals_lpc, rice_totals_xbp
 from dctpu_torch.kernels.select_bp import adaptive_totals_lpc, adaptive_totals_xbp
 from dctpu_torch.kernels.select_reduce import adaptive_totals_reduce
 from dctpu_torch.kernels.transpose import grouped_bit_transpose32
@@ -93,24 +97,35 @@ def select_blocks(
     half of the reference's encode_blocks. Returns (choice, k), each [B]
     int32; k is 0 for VERTICAL.
 
-    RICE: the exact (k, bits) per candidate from K6, then the candidate
-    with the fewest bits. VERTICAL: the candidate with the smallest sum of
-    bit lengths. Every backend name takes this path."""
+    RICE: the exact (k, bits) per candidate from K6's x forms, which
+    derive the residuals from x (one DELTA + DOUBLE_DELTA launch, one LPC
+    launch per LPC candidate), then the candidate with the fewest bits.
+    VERTICAL: the candidate with the smallest sum of bit lengths. Every
+    backend name takes this path."""
     L = x.shape[1]
-    C = len(cfg.candidates())
     if cfg.coder == "vertical":
         valid = torch.arange(L, device=x.device)[None, :] < n.to(torch.int64)[:, None]
         cost = torch.stack([
             vertical_selection_cost(candidate_z(x, history, cfg, ci), valid)
-            for ci in range(C)
+            for ci in range(len(cfg.candidates()))
         ])
         choice = _first_min(cost)
         return choice.to(torch.int32), torch.zeros_like(choice, dtype=torch.int32)
 
-    ks, bits = zip(*(
-        rice.choose_k_auto(candidate_z(x, history, cfg, ci), n, L, cfg.k_max)
-        for ci in range(C)
-    ))
+    shift = None
+    ks, bits = [], []
+    for pred, ti in cfg.candidates():
+        if pred == LPC:
+            totals = rice_totals_lpc(
+                x, history, n, cfg.lpc_tables[ti].coeffs, L, cfg.k_max
+            )
+        else:
+            if shift is None:
+                shift = rice_totals_xbp(x, history, n, L, cfg.k_max)
+            totals = shift[0 if pred == DELTA else 1]
+        k_c, bits_c = rice.best_k(totals)
+        ks.append(k_c)
+        bits.append(bits_c)
     choice = _first_min(torch.stack(bits))
     k = torch.stack(ks).gather(0, choice[None, :])[0]
     return choice.to(torch.int32), k.to(torch.int32)

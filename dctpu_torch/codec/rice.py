@@ -69,10 +69,11 @@ def choose_k_planes(
 def choose_k_auto(
     z: torch.Tensor, n: torch.Tensor, block_len: int, k_max: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Exact per-block (k, bits) of the coder="rice" encode, from K6
-    (``kernels/rice_totals.py``): the kernel on a CUDA device, its plain
-    twin on the CPU. Raises ValueError for k_max > 24, where the
-    reference asserts."""
+    """Exact per-block (k, bits) of one candidate's zigzag values, the
+    reference's contract, from K6's z form (``kernels/rice_totals.py``):
+    the kernel on a CUDA device, its plain twin on the CPU. Raises
+    ValueError for k_max > 24, where the reference asserts. The encode
+    takes the same totals from K6's x forms (``encode.select_blocks``)."""
     from dctpu_torch.kernels.rice_totals import rice_totals as k6
 
     return best_k(k6(z, n, block_len, k_max))

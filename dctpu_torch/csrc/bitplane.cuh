@@ -19,7 +19,6 @@ constexpr int kWarps = kSub / 32;   // plane words per full row
 constexpr int kExcCap = 16;         // EXC_CAP, normative (FORMAT §2.2)
 constexpr int kRegionWords = 148;   // 128 plane + 4 position + 16 value words
 constexpr int kRegionPad = 192;     // staged row stride of one sub-block
-constexpr int kMaxK = 28;           // k_max + 1 <= kMaxK
 constexpr unsigned kFull = 0xffffffffu;
 
 // Bit length of a u32 (0 for 0).

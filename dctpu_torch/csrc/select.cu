@@ -1,17 +1,23 @@
-// K1 and K2: exact adaptive-selection totals (FORMAT §4.1), per block and
-// candidate: the RICE coded-bit total for every k in [0, k_max], then the
-// exact VERTICAL word count (the width rule summed over the block's
-// 128-sample rows). K6 and K7 (below) have designs of their own.
+// K1, K2, K6 and K7: exact selection totals (FORMAT §4, §4.1), per block
+// and candidate: the RICE coded-bit total for every k in [0, k_max] and,
+// for the adaptive selection (VERT), the exact VERTICAL word count (the
+// width rule summed over the block's 128-sample rows). All of them launch
+// one template, select_lengths_kernel<Src, VERT>.
 //
 // Replaces dctpu/kernels/select_bp.py _xbp_kernel (K1: DELTA and
 // DOUBLE_DELTA derived from the raw samples) and _bp_kernel (K2: one
-// candidate's zigzag values). K2 has a second entry point that derives one
-// LPC candidate's residuals from the raw samples in the kernel; the TPU
-// kernel left LPC to XLA, because s64 was wrong in Mosaic.
+// candidate's zigzag values), and dctpu/kernels/select_pallas.py
+// _totals_kernel (K6: the RICE totals alone, for coder="rice") and
+// _adaptive_kernel (K7: K2's function in a per-k reduction formulation that
+// only cut Mosaic's lane reductions, kept by the reference as
+// backend="reduce"; here it is K2's code). K2 has a form that derives one
+// LPC candidate's residuals from the raw samples in the kernel, K6 one for
+// DELTA + DOUBLE_DELTA and one for LPC; the TPU kernels left LPC to XLA,
+// because s64 was wrong in Mosaic.
 //
-// The arithmetic. With bl the bit length of z, C[b] = #{samples with
-// bl = b} and S_j[b] = #{samples with bl = b whose bit b-1-j is set}
-// (j = 1..3, the three bits below the leading one), for every k
+// The arithmetic. With bl the bit length of z, C[b] = #{samples with bl =
+// b} and S_j[b] = #{samples with bl = b whose bit b-1-j is set} (j = 1..3,
+// the three bits below the leading one), for every k
 //   L(k) = sum_t (z>>k < 16 ? (z>>k) + 1 + k : 48)
 //        = 48 G + (k+1) (n - G)
 //          + sum_{d=1..4} (2^(d-1) C[k+d] + sum_{j=1..d-1} 2^(d-1-j) S_j[k+d])
@@ -24,23 +30,23 @@
 //
 // What bounds it on the card: one read of the block (16 KiB at block_len
 // 4096) against ~9 integer ops per sample and candidate (bit length, the
-// three bits, four counts; the x forms add the residual) and ~330 per row
-// for the width rule: bytes, by the count of chip_smoke.py work().
-// Design: a thread block of kRowWarps warps per codec block; warp w takes
-// rows w, w + kRowWarps, ..., lane c holding samples 32i + c
+// three bits, four counts; the x forms add the residual) and, with VERT,
+// ~330 per row for the width rule: bytes, by the count of chip_smoke.py
+// work(). Design: a thread block of kRowWarps warps per codec block; warp w
+// takes rows w, w + kRowWarps, ..., lane c holding samples 32i + c
 // (coalesced loads); rows past n are skipped (they add nothing). Per
 // sample one atomicAdd into the warp's shared row histogram, the four
 // counters packed as the bytes of one word (a row adds at most 128 to a
 // counter, so no field carries into the next); z = 0 is not counted (C[0]
 // is n less the rest). Per row, lane b takes bin b+1 into the block's
-// counters in registers, forms E[b] by a 5-step shuffle suffix scan and
-// runs bitplane.cuh's select_width on it: no block barrier inside the row
-// loop. The x forms stage each row and its four preceding samples (or the
-// history) in the warp's shared memory, so that lag m is a shifted read;
-// the LPC accumulator wraps as uint64_t, then takes an arithmetic >> 16 as
-// int64_t. Epilogue: one __syncthreads, then warp c sums the warps'
-// counters and lane k forms L(k) from the identity with shuffles. No
-// atomics across thread blocks, no second pass.
+// counters in registers and, with VERT, forms E[b] by a 5-step shuffle
+// suffix scan and runs bitplane.cuh's select_width on it: no block barrier
+// inside the row loop. The x forms stage each row and its four preceding
+// samples (or the history) in the warp's shared memory, so that lag m is a
+// shifted read; the LPC accumulator wraps as uint64_t, then takes an
+// arithmetic >> 16 as int64_t. Epilogue: one __syncthreads, then warp c
+// sums the warps' counters and lane k forms L(k) from the identity with
+// shuffles. No atomics across thread blocks, no second pass.
 #include "bitplane.cuh"
 
 namespace dct {
@@ -76,7 +82,9 @@ __device__ __forceinline__ int suffix_sum(int v) {
   return v;
 }
 
-template <Src SRC>
+// out [B, NC, k_max + 1 + VERT]: the RICE totals of each candidate, then
+// (VERT) its VERTICAL word count.
+template <Src SRC, bool VERT>
 __global__ void __launch_bounds__(kRowWarps * 32)
 select_lengths_kernel(const int32_t* __restrict__ src,
                       const int32_t* __restrict__ hist,
@@ -88,7 +96,7 @@ select_lengths_kernel(const int32_t* __restrict__ src,
   __shared__ uint32_t bins[kRowWarps][NC][32];  // the row's, bl = b at b-1
   __shared__ int32_t stage[kRowWarps][FROM_X ? 4 + kSub : 1];
   __shared__ int red[kRowWarps][NC][4][32];     // block counters per warp
-  __shared__ int vred[kRowWarps][NC];
+  __shared__ int vred[kRowWarps][VERT ? NC : 1];
 
   const int blk = blockIdx.x;
   const int lane = threadIdx.x & 31;
@@ -170,7 +178,6 @@ select_lengths_kernel(const int32_t* __restrict__ src,
         }
       }
     __syncwarp();
-    const int pw = plane_words(s, block_len);
 #pragma unroll
     for (int c = 0; c < NC; ++c) {
       const uint32_t v = bins[warp][c][lane];
@@ -180,7 +187,9 @@ select_lengths_kernel(const int32_t* __restrict__ src,
       cnt[c][1] += static_cast<int>((v >> 8) & 0xffu);
       cnt[c][2] += static_cast<int>((v >> 16) & 0xffu);
       cnt[c][3] += static_cast<int>(v >> 24);
-      vwords[c] += select_width(suffix_sum(here), pw).words;
+      if constexpr (VERT)
+        vwords[c] +=
+            select_width(suffix_sum(here), plane_words(s, block_len)).words;
     }
     __syncwarp();  // bins and stage are rewritten by the next row
   }
@@ -189,7 +198,9 @@ select_lengths_kernel(const int32_t* __restrict__ src,
   for (int c = 0; c < NC; ++c) {
 #pragma unroll
     for (int f = 0; f < 4; ++f) red[warp][c][f][lane] = cnt[c][f];
-    if (lane == 0) vred[warp][c] = vwords[c];
+    if constexpr (VERT) {
+      if (lane == 0) vred[warp][c] = vwords[c];
+    }
   }
   __syncthreads();
   if (warp < NC) {
@@ -201,7 +212,7 @@ select_lengths_kernel(const int32_t* __restrict__ src,
       S1 += red[w][c][1][lane];
       S2 += red[w][c][2][lane];
       S3 += red[w][c][3][lane];
-      vw += vred[w][c];
+      if constexpr (VERT) vw += vred[w][c];
     }
     // lane k: bin k+d is d-1 lanes up; G = E[k+4]
     const int k = lane;
@@ -213,182 +224,45 @@ select_lengths_kernel(const int32_t* __restrict__ src,
                 + 4 * bin_above(S1, 3)
                 + bin_above(S2, 2) + 2 * bin_above(S2, 3)
                 + bin_above(S3, 3);
-    int32_t* o = out + (static_cast<size_t>(blk) * NC + c) * (k_max + 2);
+    int32_t* o = out + (static_cast<size_t>(blk) * NC + c) * (k_max + 1 + VERT);
     if (k <= k_max) o[k] = t;
-    if (lane == 0) o[k_max + 1] = vw;
+    if constexpr (VERT) {
+      if (lane == 0) o[k_max + 1] = vw;
+    }
   }
 }
 
-// K6: the exact RICE totals alone (the coder="rice" k choice). Replaces
-// dctpu/kernels/select_pallas.py _totals_kernel. Per sample and k from the
-// definition L(k) = sum_t (q_t < 16 ? q_t + 1 + k : 48), q_t = z_t >> k,
-// in registers. What bounds it on the card: the function needs one 4-byte
-// read per sample against ~9 integer ops (K1 and K2's count): bytes; this
-// kernel does ~4 ops per sample and k, so instruction issue sets its time.
-// One thread block of 128 threads per codec block walks the block's rows;
-// the totals are reduced inside the thread block (no atomics, no second
-// pass).
-__global__ void __launch_bounds__(kSub)
-rice_totals_kernel(const int32_t* __restrict__ z,
-                   const int32_t* __restrict__ n,
-                   int32_t* __restrict__ out, int block_len, int k_max) {
-  __shared__ int red[kWarps][kMaxK];
-
-  const int blk = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int nb = min(n[blk], block_len);
-  const int32_t* row = z + static_cast<size_t>(blk) * block_len;
-
-  int acc[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) acc[k] = 0;
-
-  const int subs = (block_len + kSub - 1) / kSub;
-  for (int s = 0; s < subs; ++s) {
-    const int i = s * kSub + tid;
-    if (i < nb) {
-      const uint32_t v = static_cast<uint32_t>(row[i]);
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (k <= k_max) {
-          const uint32_t q = v >> k;
-          acc[k] += q >= 16u ? 48 : static_cast<int>(q) + 1 + k;
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    const int v = __reduce_add_sync(kFull, acc[k]);
-    if (lane == 0) red[warp][k] = v;
-  }
-  __syncthreads();
-  if (tid <= k_max) {
-    int t = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) t += red[w][tid];
-    out[static_cast<size_t>(blk) * (k_max + 1) + tid] = t;
-  }
-}
-
-// K7: K2's outputs in the reduction formulation of
-// dctpu/kernels/select_pallas.py _adaptive_kernel (adaptive_totals_pallas),
-// the A/B twin the reference keeps beside K2. Per 128-sample sub-block row:
-// the direct per-k lengths (z >> (k + 4) != 0 ? 48 : ((z >> k) & 15) + k + 1)
-// over the valid samples, then the exceed table E[b] = #{bit length > b} as
-// 32 warp sums and the FORMAT §2.2 width rule on it.
-//
-// What bounds it on the card: the function needs one 4-byte read per
-// sample against ~9 integer ops (K1 and K2's count): bytes. This kernel
-// does ~4 ops per sample and k instead, so instruction issue sets its
-// time. Design: one thread block of
-// kReduceWarps warps per codec block; each warp takes every kReduceWarps-th
-// sub-block row, lane c holding samples 32i + c (coalesced loads). The
-// TPU's pair- and quad-packed lane sums (which only cut Mosaic lane
-// reductions) become __reduce_add_sync: one per b for E, one per k at the
-// end; the width rule is bitplane.cuh's select_width on the warp's E. The
-// warps' totals meet once in shared memory: no atomics, no second pass.
-constexpr int kReduceWarps = 8;
-
-__global__ void __launch_bounds__(kReduceWarps * 32)
-select_reduce_kernel(const int32_t* __restrict__ z,
-                     const int32_t* __restrict__ n,
-                     int32_t* __restrict__ out, int block_len, int k_max) {
-  __shared__ int e_sh[kReduceWarps][32];
-  __shared__ int red[kReduceWarps][kMaxK + 1];  // per-k sums, then vwords
-
-  const int blk = blockIdx.x;
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nb = min(n[blk], block_len);
-  const int32_t* row = z + static_cast<size_t>(blk) * block_len;
-
-  int acc[kMaxK];
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) acc[k] = 0;
-  int vwords = 0;
-
-  const int subs = (block_len + kSub - 1) / kSub;
-  for (int s = warp; s < subs; s += kReduceWarps) {
-    uint32_t v[kWarps];
-    int bl[kWarps];
-#pragma unroll
-    for (int i = 0; i < kWarps; ++i) {
-      const int idx = s * kSub + 32 * i + lane;
-      const bool valid = idx < nb;
-      v[i] = valid ? static_cast<uint32_t>(row[idx]) : 0u;
-      bl[i] = bit_length(v[i]);
-#pragma unroll
-      for (int k = 0; k < kMaxK; ++k) {
-        if (valid && k <= k_max) {
-          acc[k] += (v[i] >> (k + 4)) != 0u
-                        ? 48
-                        : static_cast<int>((v[i] >> k) & 15u) + k + 1;
-        }
-      }
-    }
-    int mine = 0;
-#pragma unroll
-    for (int b = 0; b < 32; ++b) {
-      int c = 0;
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) c += bl[i] > b;
-      c = __reduce_add_sync(kFull, c);
-      if (lane == b) mine = c;
-    }
-    e_sh[warp][lane] = mine;
-    __syncwarp();
-    vwords += select_width(e_sh[warp], plane_words(s, block_len)).words;
-    __syncwarp();  // e_sh is rewritten by the next row
-  }
-
-#pragma unroll
-  for (int k = 0; k < kMaxK; ++k) {
-    const int t = __reduce_add_sync(kFull, acc[k]);
-    if (lane == 0) red[warp][k] = t;
-  }
-  if (lane == 0) red[warp][kMaxK] = vwords;
-  __syncthreads();
-  const int width = k_max + 2;
-  if (threadIdx.x < width) {
-    const int j = threadIdx.x <= k_max ? threadIdx.x : kMaxK;
-    int t = 0;
-#pragma unroll
-    for (int w = 0; w < kReduceWarps; ++w) t += red[w][j];
-    out[static_cast<size_t>(blk) * width + threadIdx.x] = t;
-  }
+template <Src SRC, bool VERT>
+int launch(const void* src, const void* hist, const void* n, void* out,
+           int num_blocks, int block_len, int k_max, Lpc lpc, void* stream) {
+  select_lengths_kernel<SRC, VERT>
+      <<<num_blocks, kRowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(src), static_cast<const int32_t*>(hist),
+          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
+          block_len, k_max, lpc);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace dct
+
+using dct::Lpc;
+using dct::Src;
 
 // K1: x [B, L] raw int32 samples, hist [B, 4] -> out [B, 2, k_max + 2]
 // (candidate order DELTA, DOUBLE_DELTA).
 extern "C" int dct_select_xbp(const void* x, const void* hist, const void* n,
                               void* out, int num_blocks, int block_len,
                               int k_max, void* stream) {
-  dct::select_lengths_kernel<dct::Src::kDeltas>
-      <<<num_blocks, dct::kRowWarps * 32, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(x), static_cast<const int32_t*>(hist),
-          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
-          block_len, k_max, dct::Lpc{});
-  return static_cast<int>(cudaGetLastError());
+  return dct::launch<Src::kDeltas, true>(x, hist, n, out, num_blocks,
+                                         block_len, k_max, Lpc{}, stream);
 }
 
 // K2: z [B, L] zigzag values (int32 bit patterns) -> out [B, k_max + 2].
 extern "C" int dct_select_bp(const void* z, const void* n, void* out,
                              int num_blocks, int block_len, int k_max,
                              void* stream) {
-  dct::select_lengths_kernel<dct::Src::kZigzag>
-      <<<num_blocks, dct::kRowWarps * 32, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(z), nullptr,
-          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
-          block_len, k_max, dct::Lpc{});
-  return static_cast<int>(cudaGetLastError());
+  return dct::launch<Src::kZigzag, true>(z, nullptr, n, out, num_blocks,
+                                         block_len, k_max, Lpc{}, stream);
 }
 
 // K2, LPC form: x [B, L] raw int32 samples, hist [B, 4] and one table's
@@ -397,34 +271,43 @@ extern "C" int dct_select_lpc(const void* x, const void* hist, const void* n,
                               void* out, int num_blocks, int block_len,
                               int k_max, int c0, int c1, int c2, int c3,
                               void* stream) {
-  dct::select_lengths_kernel<dct::Src::kLpc>
-      <<<num_blocks, dct::kRowWarps * 32, 0,
-         static_cast<cudaStream_t>(stream)>>>(
-          static_cast<const int32_t*>(x), static_cast<const int32_t*>(hist),
-          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
-          block_len, k_max, dct::Lpc{c0, c1, c2, c3});
-  return static_cast<int>(cudaGetLastError());
+  return dct::launch<Src::kLpc, true>(x, hist, n, out, num_blocks, block_len,
+                                      k_max, Lpc{c0, c1, c2, c3}, stream);
 }
 
 // K7: z [B, L] zigzag values (int32 bit patterns) -> out [B, k_max + 2],
-// K2's layout.
+// K2's layout and K2's code.
 extern "C" int dct_select_reduce(const void* z, const void* n, void* out,
                                  int num_blocks, int block_len, int k_max,
                                  void* stream) {
-  dct::select_reduce_kernel<<<num_blocks, dct::kReduceWarps * 32, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(z), static_cast<const int32_t*>(n),
-      static_cast<int32_t*>(out), block_len, k_max);
-  return static_cast<int>(cudaGetLastError());
+  return dct::launch<Src::kZigzag, true>(z, nullptr, n, out, num_blocks,
+                                         block_len, k_max, Lpc{}, stream);
 }
 
 // K6: z [B, L] zigzag values (int32 bit patterns) -> out [B, k_max + 1].
 extern "C" int dct_rice_totals(const void* z, const void* n, void* out,
                                int num_blocks, int block_len, int k_max,
                                void* stream) {
-  dct::rice_totals_kernel<<<num_blocks, dct::kSub, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(z), static_cast<const int32_t*>(n),
-      static_cast<int32_t*>(out), block_len, k_max);
-  return static_cast<int>(cudaGetLastError());
+  return dct::launch<Src::kZigzag, false>(z, nullptr, n, out, num_blocks,
+                                          block_len, k_max, Lpc{}, stream);
+}
+
+// K6, DELTA + DOUBLE_DELTA form: x [B, L] raw int32 samples, hist [B, 4]
+// -> out [B, 2, k_max + 1] (candidate order DELTA, DOUBLE_DELTA).
+extern "C" int dct_rice_totals_xbp(const void* x, const void* hist,
+                                   const void* n, void* out, int num_blocks,
+                                   int block_len, int k_max, void* stream) {
+  return dct::launch<Src::kDeltas, false>(x, hist, n, out, num_blocks,
+                                          block_len, k_max, Lpc{}, stream);
+}
+
+// K6, LPC form: x [B, L] raw int32 samples, hist [B, 4] and one table's Q16
+// coefficients c0..c3 -> out [B, k_max + 1] of that LPC candidate.
+extern "C" int dct_rice_totals_lpc(const void* x, const void* hist,
+                                   const void* n, void* out, int num_blocks,
+                                   int block_len, int k_max, int c0, int c1,
+                                   int c2, int c3, void* stream) {
+  return dct::launch<Src::kLpc, false>(x, hist, n, out, num_blocks,
+                                       block_len, k_max, Lpc{c0, c1, c2, c3},
+                                       stream);
 }

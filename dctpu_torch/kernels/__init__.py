@@ -7,7 +7,7 @@ and the plain-torch stages around them.
   pack         K5a     RICE bit packer
   unpack       K5b     RICE bit unpacker
   rice_totals  K6      exact RICE totals per k (coder="rice" selection)
-  select_reduce K7     K2's totals, reduction form (backend="reduce")
+  select_reduce K7     K2's totals on K2's code (backend="reduce")
   exc_extract  K8      VERTICAL exceptions at given widths (backend="pallas")
   transpose    K9      grouped 32x32 bit transpose (backend="pallas")
   vertical, ragged: plain torch (XLA code on the TPU)

@@ -46,6 +46,8 @@ SIGNATURES = {
     "dct_vemit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dct_vdec": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_totals_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_totals_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dct_rice_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_unpack": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),

@@ -133,6 +133,15 @@ def _check_x(name, x, history, n, block_len):
     return n
 
 
+def _lpc_coeffs(coeffs) -> tuple:
+    """Four Q16 coefficients as ints; ValueError unless each is int32, the
+    frame's type."""
+    coeffs = tuple(int(c) for c in coeffs)
+    if len(coeffs) != 4 or not all(-(2**31) <= c < 2**31 for c in coeffs):
+        raise ValueError(f"LPC coefficients must be four int32 values, got {coeffs}")
+    return coeffs
+
+
 def adaptive_totals_lpc_plain(x, history, n, coeffs, block_len: int, k_max: int):
     """Plain twin of K2's LPC form: K2's twin on the candidate's zigzag
     residuals."""
@@ -157,9 +166,7 @@ def adaptive_totals_lpc(
     Returns (rice_totals [B, k_max+1] int32, vertical_words [B] int32).
     Raises ValueError for a coefficient outside int32, the frame's type."""
     _check_args(block_len, k_max)
-    coeffs = tuple(int(c) for c in coeffs)
-    if len(coeffs) != 4 or not all(-(2**31) <= c < 2**31 for c in coeffs):
-        raise ValueError(f"LPC coefficients must be four int32 values, got {coeffs}")
+    coeffs = _lpc_coeffs(coeffs)
     if x.device.type == "cpu":
         return adaptive_totals_lpc_plain(x, history, n, coeffs, block_len, k_max)
     if x.device.type != "cuda":

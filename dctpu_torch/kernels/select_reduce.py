@@ -5,8 +5,11 @@ The counterpart of ``dctpu/kernels/select_pallas.py``
 coded-bit total for every k in [0, k_max] and the exact VERTICAL word
 count), computed per 128-sample sub-block row from the per-k lengths and
 the exceed table, then summed per block. The reference keeps it beside K2
-as ``adaptive_select(..., backend="reduce")``. The CUDA kernel is
-``dct_select_reduce`` in ``dctpu_torch/csrc/select.cu``.
+as ``adaptive_select(..., backend="reduce")``. The CUDA kernel,
+``dct_select_reduce`` in ``dctpu_torch/csrc/select.cu``, launches K2's
+bit-length-histogram code (the per-k formulation only cut the TPU's lane
+reductions); the plain twin keeps the per-sub-row, per-k formulation, an
+arithmetic apart from the kernel's.
 
 ``adaptive_totals_reduce`` runs the plain torch twin for tensors on the
 CPU and launches the kernel for tensors on a CUDA device;

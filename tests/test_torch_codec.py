@@ -230,6 +230,8 @@ def test_wrappers_refuse_other_devices():
         lambda: vemit.vertical_emit(z, n, 256),
         lambda: vdec.decode_vertical(rows, n, 256),
         lambda: rice_totals.rice_totals(z, n, 256, 24),
+        lambda: rice_totals.rice_totals_xbp(z, h, n, 256, 24),
+        lambda: rice_totals.rice_totals_lpc(z, h, n, (1, 2, 3, 4), 256, 24),
         lambda: pack.rice_pack(z, n, n, 256),
         lambda: unpack.rice_unpack(rice_rows, n, n, 256),
         lambda: select_reduce.adaptive_totals_reduce(z, n, 256, 24),

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K9 (and K2's LPC form) against their plain twins,
-on the card.
+"""The CUDA kernels K1-K9 (and the x forms of K2 and K6) against their
+plain twins, on the card.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -86,14 +86,36 @@ def test_kernels_match_twins_on_card(cuda, L):
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
 def test_rice_kernels_match_twins_on_card(cuda, L):
-    """K6, K5a and K5b; 12000 takes K5a's device-memory row path."""
-    z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 9))
+    """K6 (its three forms), K5a and K5b; 12000 takes K5a's device-memory
+    row path."""
+    z, x, h, n, k = (t.to(cuda) for t in _inputs(L, 9))
     _same((rice_totals.rice_totals(z, n, L, 24),),
           (rice_totals.rice_totals_plain(z, n, L, 24),))
+    _same((rice_totals.rice_totals_xbp(x, h, n, L, 24),),
+          (rice_totals.rice_totals_xbp_plain(x, h, n, L, 24),))
+    for coeffs in [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP]:
+        _same((rice_totals.rice_totals_lpc(x, h, n, coeffs, L, 24),),
+              (rice_totals.rice_totals_lpc_plain(x, h, n, coeffs, L, 24),))
     packed = pack.rice_pack(z, k, n, L)
     _same(packed, pack.rice_pack_plain(z, k, n, L))
     rows = torch.nn.functional.pad(packed[0], (0, 2))
     _same((unpack.rice_unpack(rows, k, n, L),), (unpack.unpack(rows, k, n, L),))
+
+
+def test_rice_select_launches_x_forms_on_card(cuda):
+    """The rice selection launches K6's DELTA + DOUBLE_DELTA form once, its
+    LPC form once per LPC candidate and its z form never, and selects as
+    the twins do on the CPU."""
+    cfg = CodecConfig()
+    streams, _, _ = synth_corpus(4, 9000, seed=3, cumulative_frac=0.5)
+    t = [torch.from_numpy(a) for a in api.build_blocks(streams, cfg.block_len)[:3]]
+    counted = (rice_totals.rice_totals, rice_totals.rice_totals_xbp,
+               rice_totals.rice_totals_lpc)
+    for fn in counted:
+        fn.launches = 0
+    got = encode.select_blocks(*(a.to(cuda) for a in t), cfg)
+    assert [fn.launches for fn in counted] == [0, 1, len(cfg.candidates()) - 2]
+    _same(got, encode.select_blocks(*t, cfg))
 
 
 CONFIGS = {
