@@ -5,16 +5,19 @@ Run from the repository root: ``python3 chip_smoke.py``. It
 
   1. prints the card (nvidia-smi name and power limit) and builds the CUDA
      kernels from dctpu_torch/csrc (one nvcc per source, in parallel);
-  2. holds each kernel K1-K4, K5a, K5b and K6-K9 against its plain torch
-     twin on the card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
+  2. holds each kernel K1-K9 and R against its plain torch twin on the
+     card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
      (block_len % 128 != 0) and 32 x 12000 (rows too large for K5a's
      shared-memory path), with edge rows, and times both at 8192 x 4096
      with CUDA events beside each kernel's bound; K2 in both its forms,
      on zigzag values and on the raw samples with an LPC table ("K2-lpc":
      each default table and one whose products wrap the int64
-     accumulator), and K6 in its three: on zigzag values, on the raw
-     samples for DELTA + DOUBLE_DELTA ("K6-xbp") and for an LPC table
-     ("K6-lpc", the same tables);
+     accumulator), K6 in its three: on zigzag values, on the raw samples
+     for DELTA + DOUBLE_DELTA ("K6-xbp") and for an LPC table ("K6-lpc",
+     the same tables), K3 in its two, the payload rows from the raw
+     samples with every candidate of those tables chosen ("K3") and from
+     zigzag values ("K3-z"), and R (the reconstruction) on every
+     predictor and table, with histories at the int32 extremes;
   3. drives compress -> write_frame -> read_frame -> decompress for the
      adaptive, rice and vertical coders at the bench geometry (8192 blocks
      x 4096 int32 = 128 MiB, resident on the card), each with the launch
@@ -22,15 +25,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      trip bit-exact, every kernel of each path launched (K6-xbp once,
      K6-lpc once per LPC candidate and K6's z form never on the rice path;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
-     paths), with the device segments each
-     compress obtained from the allocator (and, for the adaptive path, the
-     stage times of a second compress on the cached segments); then, on
-     the same corpus, the adaptive selection under backend="reduce" (K7
-     once per candidate on the torch residuals, K1 and K2 never; equal to
-     the default selection, which is the full-size check of the LPC
-     residuals derived in K2) and the adaptive and vertical round trips
-     under backend="pallas" (K9 and K8 in place of K3; frames
-     byte-identical to the default ones);
+     paths; R once per coder group in every decode; K3 once per VERTICAL
+     group and its z form never), and the plain torch stages that R and
+     K3 replace never run (the LPC recurrence loop, the region assembly,
+     the winner's residuals in a VERTICAL emission), with the device
+     segments each compress obtained from the allocator (and, for the
+     adaptive path, the stage times of a second compress on the cached
+     segments); then, on the same corpus, the adaptive selection under
+     backend="reduce" (K7 once per candidate on the torch residuals, K1
+     and K2 never; equal to the default selection, which is the
+     full-size check of the LPC residuals derived in K2), the VERTICAL
+     emission of the vertical path's selection through K3's z form (the
+     reference's encode_vertical signature; rows equal to the x form's),
+     and the adaptive and vertical round trips under backend="pallas" (K9
+     and K8 in place of K3; frames byte-identical to the default ones);
   4. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
      port's frame back to the input;
@@ -44,6 +52,7 @@ on the CPU instead.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -150,30 +159,47 @@ def bound(nbytes: float, ops: float):
 # each), a subtraction and a zigzag.
 LEN_OPS, K_OPS, ROW_OPS = 9, 24, 32 + 33 * 9
 DELTAS_OPS, LPC_OPS = 3 + 2 * 3, 2 * (4 + 3 + 1) + 1 + 3
+# The prediction of one sample (DELTA none; DOUBLE_DELTA a shift and a
+# subtraction; LPC 4 multiplies, 3 adds and a shift in 64 bits), plus 4:
+# the residual's subtraction and zigzag, or the unzigzag and the addition.
+PRED_OPS = {0: 4, 1: 2 + 4, 2: 2 * (4 + 3 + 1) + 4}
 
 
-def work(key, B, L, n, b, rows_words):
+def pred_ops(n, L, pred) -> int:
+    """Prediction ops of each block's valid samples for its predictor."""
+    v = n.clamp(0, L).long()
+    return sum(c * int(v[pred == p].sum()) for p, c in PRED_OPS.items())
+
+
+def work(key, B, L, n, b, rows_words, preds):
     """(bytes, ops) of kernel `key` on this run's inputs. ops count the
     integer work that the function needs: the selection totals as above
     (K1, K2, K2-lpc, K7; K6, K6-xbp, K6-lpc without the VERTICAL words),
-    32 per valid
-    sample for K3's bit planes, 3 per decoded plane bit for K4, ~20 per
-    codeword for the RICE pack (codeword, scan, ORs) and unpack (window,
-    count, extract), 4 per sub-block word for K8 (shift, compare, vote,
-    rank) and 32 per word for K9 (one vote per plane)."""
+    64 per valid sample for K3's bit planes and exceptions (plus the
+    chosen candidate's PRED_OPS in its x form, from preds), PRED_OPS per
+    valid sample for R, 3 per decoded plane bit for K4, ~20 per codeword
+    for the RICE pack (codeword, scan, ORs) and unpack (window, count,
+    extract), 4 per sub-block word for K8 (shift, compare, vote, rank) and
+    32 per word for K9 (one vote per plane). K3's output is its payload
+    rows, rows_words["K3"] words, whole."""
     v = int(n.clamp(0, L).sum())
     K1 = K_MAX + 1
     R = B * -(-L // 128)
     sub_bytes = R * 4
     rice = v * LEN_OPS + B * (33 + K_OPS * K1)
     select = rice + R * ROW_OPS  # per candidate
+    rows_out = 4 * rows_words["K3"] + 8 * B
     return {
         "K1": (4 * B * L + 16 * B + 4 * B + 8 * B * (K1 + 1),
                2 * select + v * DELTAS_OPS),
         "K2": (4 * B * L + 4 * B + 4 * B * (K1 + 1), select),
         "K2-lpc": (4 * B * L + 16 * B + 4 * B + 4 * B * (K1 + 1),
                    select + v * LPC_OPS),
-        "K3": (4 * B * L + 4 * B + sub_bytes * (128 + 4 + 4 + 16), v * 64),
+        "K3": (4 * B * L + 16 * B + 8 * B + 20 * rows_words["cands"] + rows_out,
+               v * 64 + pred_ops(n, L, preds["K3"])),
+        "K3-z": (4 * B * L + 4 * B + rows_out, v * 64),
+        "R": (8 * B * L + 16 * B + 12 * B + 16 * rows_words["tables"],
+              pred_ops(n, L, preds["R"])),
         "K4": (4 * rows_words["K4"] + 4 * B + 4 * B * L, 3 * 128 * int(b.sum())),
         "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
         "K5b": (4 * rows_words["K5b"] + 8 * B + 4 * B * L, 20 * v),
@@ -195,8 +221,10 @@ RECS = {
            "dctpu/kernels/select_bp.py:206"),
     "K2-lpc": ("K2 select_lpc (LPC form)", "dctpu_torch/csrc/select.cu",
                "dctpu/kernels/select_bp.py:206"),
-    "K3": ("K3 vemit", "dctpu_torch/csrc/vemit.cu",
+    "K3": ("K3 vemit_rows (x form)", "dctpu_torch/csrc/vemit.cu",
            "dctpu/kernels/vemit_pallas.py:116"),
+    "K3-z": ("K3 vemit_rows_z (z form)", "dctpu_torch/csrc/vemit.cu",
+             "dctpu/kernels/vemit_pallas.py:116"),
     "K4": ("K4 vdec", "dctpu_torch/csrc/vdec.cu",
            "dctpu/kernels/vdec_pallas.py:76"),
     "K5a": ("K5a rice_pack", "dctpu_torch/csrc/pack.cu",
@@ -216,7 +244,26 @@ RECS = {
            "dctpu/kernels/vertical_pallas.py:43"),
     "K9": ("K9 bit_transpose", "dctpu_torch/csrc/transpose.cu",
            "dctpu/kernels/transpose_pallas.py:83"),
+    "R": ("R reconstruct", "dctpu_torch/csrc/recon.cu",
+          "dctpu/codec/predict.py:93"),
 }
+
+
+def recon_scaling(z, n, tidx, hist, coeffs) -> None:
+    """R's time with every block on one predictor, at B and at B / 16
+    blocks: a time that moves with neither is the per-warp chain of the
+    walk, not device bandwidth and not the LPC arithmetic."""
+    import torch
+
+    from dctpu_torch.kernels.reconstruct import reconstruct
+
+    for rows in (z.shape[0], z.shape[0] // 16):
+        for pred in (0, 2):
+            p = torch.full((rows,), pred, dtype=torch.int32, device=z.device)
+            args = (z[:rows], n[:rows], p, tidx[:rows], hist[:rows], coeffs)
+            ms = time_ms(lambda: reconstruct(*args), 10)  # noqa: B023
+            print(f"  R {rows}x{z.shape[1]}, every block predictor {pred}: "
+                  f"{ms:.4f} ms", flush=True)
 
 
 def check_kernels(dev):
@@ -234,7 +281,7 @@ def check_kernels(dev):
         rice_totals_xbp,
         rice_totals_xbp_plain,
     )
-    from dctpu_torch.config import DEFAULT_LPC_TABLES
+    from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
     from dctpu_torch.kernels.select_bp import (
         adaptive_totals_bp,
         adaptive_totals_bp_plain,
@@ -251,9 +298,16 @@ def check_kernels(dev):
         grouped_bit_transpose32,
         grouped_bit_transpose32_plain,
     )
+    from dctpu_torch.kernels.reconstruct import reconstruct, reconstruct_plain
     from dctpu_torch.kernels.unpack import rice_unpack, unpack
     from dctpu_torch.kernels.vdec import decode_vertical, decode_vertical_plain
-    from dctpu_torch.kernels.vemit import vertical_emit, vertical_emit_plain
+    from dctpu_torch.kernels.vemit import (
+        vertical_emit,
+        vertical_emit_rows,
+        vertical_emit_rows_plain,
+        vertical_emit_rows_z,
+        vertical_emit_rows_z_plain,
+    )
     from dctpu_torch.kernels.vertical import assemble_rows, sub_rows
 
     recs = {
@@ -264,14 +318,37 @@ def check_kernels(dev):
     K = K_MAX
     # K2-lpc and K6-lpc are held against their twins with every default
     # table and one whose products wrap the int64 accumulator on the
-    # -2**31 samples of row 0; they are timed with the first default table
+    # -2**31 samples of row 0; they are timed with the first default table.
+    # K3 chooses every candidate of those tables in turn, block by block;
+    # R gives block i predictor i % 3 and table i // 3 % T, so that block 14
+    # runs the wrap table, here on -2**31 samples (a -2**31 history and
+    # residuals, z = 0xFFFFFFFF)
     tables = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP_COEFFS]
+    extremes = torch.tensor([-(2**31), 2**31 - 1] * 2, dtype=torch.int32)
     for si, (B, L) in enumerate(SHAPES):
         x, z, hist, n, k = (
             torch.from_numpy(a).to(dev) for a in kernel_inputs(B, L, 100 + si)
         )
-        planes, b, vwords, n_exc, e, pos_words, vals = vertical_emit_plain(z, n, L)
+        emitted = vertical_emit(z, n, L)
+        planes, b, vwords, n_exc, e, pos_words, vals = emitted
         rows = assemble_rows(planes, b, n_exc, e, pos_words, vals, L)
+        cfg = CodecConfig(block_len=L, coder="vertical",
+                          lpc_tables=tuple(LpcTable(4, c) for c in tables))
+        cands = cfg.candidates()
+        blocks = torch.arange(B, device=dev)
+        choice = (blocks % len(cands)).to(torch.int32)
+        pred_r = (blocks % 3).to(torch.int32)
+        tidx = (blocks // 3 % len(tables)).to(torch.int32)
+        coeffs = torch.tensor(tables, dtype=torch.int32, device=dev)
+        hist_r = hist.clone()
+        hist_r[::7] = extremes.to(dev)
+        hist_r[14] = -(2**31)
+        zr = z.clone()
+        zr[14] = -1
+        preds = {
+            "K3": torch.tensor([p for p, _ in cands], device=dev)[choice.long()],
+            "R": pred_r,
+        }
         payload, bit_len = rice_pack_plain(z, k, n, L)
         rice_rows = torch.nn.functional.pad(payload, (0, 2))
         # K8 and K9 take the staged emission's inputs: the sub-block rows
@@ -293,8 +370,10 @@ def check_kernels(dev):
                 lambda: [t for c in tables
                          for t in adaptive_totals_lpc_plain(x, hist, n, c, L, K)],
             ),
-            "K3": (lambda: vertical_emit(z, n, L),
-                   lambda: vertical_emit_plain(z, n, L)),
+            "K3": (lambda: vertical_emit_rows(x, hist_r, n, choice, cfg),
+                   lambda: vertical_emit_rows_plain(x, hist_r, n, choice, cfg)),
+            "K3-z": (lambda: vertical_emit_rows_z(z, n, L),
+                     lambda: vertical_emit_rows_z_plain(z, n, L)),
             "K4": (lambda: (decode_vertical(rows, n, L),),
                    lambda: (decode_vertical_plain(rows, n, L),)),
             "K5a": (lambda: rice_pack(z, k, n, L),
@@ -316,6 +395,9 @@ def check_kernels(dev):
                    lambda: exc_extract_plain(zs, b_exc)),
             "K9": (lambda: (grouped_bit_transpose32(groups),),
                    lambda: (grouped_bit_transpose32_plain(groups),)),
+            "R": (lambda: (reconstruct(zr, n, pred_r, tidx, hist_r, coeffs),),
+                  lambda: (reconstruct_plain(zr, n, pred_r, tidx, hist_r,
+                                             coeffs),)),
         }
         for key, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -341,14 +423,19 @@ def check_kernels(dev):
                     "K4": sync + int(vwords.sum()),
                     "K5a": int(payload.numel()),
                     "K5b": sync + int(((bit_len + 31) // 32).sum()),
+                    "K3": int(rows.numel()),
+                    "cands": len(cands),
+                    "tables": len(tables),
                 }
-                nbytes, ops = work(key, B, L, n, b, words)
+                nbytes, ops = work(key, B, L, n, b, words, preds)
                 r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
                 print(f"  {key} {B}x{L}: kernel {r['ms']:.3f} ms, plain "
                       f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}: {nbytes} B, {ops} ops)", flush=True)
+                if key == "R":
+                    recon_scaling(zr, n, tidx, hist_r, coeffs)
         del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload, rice_rows
-        del zs, b_exc, groups
+        del zs, b_exc, groups, emitted, choice, pred_r, tidx, hist_r, zr, preds
         torch.cuda.empty_cache()
     return recs
 
@@ -359,6 +446,7 @@ def counters():
     from dctpu_torch.kernels import (
         exc_extract,
         pack,
+        reconstruct,
         rice_totals,
         select_bp,
         select_reduce,
@@ -372,7 +460,8 @@ def counters():
         "K1": (select_bp.adaptive_totals_xbp,),
         "K2": (select_bp.adaptive_totals_bp, select_bp.adaptive_totals_lpc),
         "K2-lpc": (select_bp.adaptive_totals_lpc,),
-        "K3": (vemit.vertical_emit,),
+        "K3": (vemit.vertical_emit_rows,),
+        "K3-z": (vemit.vertical_emit_rows_z,),
         "K4": (vdec.decode_vertical,),
         "K5a": (pack.rice_pack,),
         "K5b": (unpack.rice_unpack,),
@@ -383,6 +472,7 @@ def counters():
         "K7": (select_reduce.adaptive_totals_reduce,),
         "K8": (exc_extract.exc_extract,),
         "K9": (transpose.grouped_bit_transpose32,),
+        "R": (reconstruct.reconstruct,),
     }
 
 
@@ -399,14 +489,48 @@ def read_counters() -> dict:
 # kernels each path must launch, and those it must not: the paths are
 # (coder, backend)
 NEEDS = {
-    ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b"),
-    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc"),
-    ("vertical", None): ("K3", "K4"),
+    ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b", "R"),
+    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc", "R"),
+    ("vertical", None): ("K3", "K4", "R"),
     ("adaptive", "pallas"): ("K1", "K2", "K2-lpc", "K4", "K5a", "K5b", "K8",
-                             "K9"),
-    ("vertical", "pallas"): ("K4", "K8", "K9"),
+                             "K9", "R"),
+    ("vertical", "pallas"): ("K4", "K8", "K9", "R"),
 }
-NEVER = {("adaptive", "pallas"): ("K3",), ("vertical", "pallas"): ("K3",)}
+NEVER = {
+    ("adaptive", None): ("K3-z",),
+    ("vertical", None): ("K3-z",),
+    ("adaptive", "pallas"): ("K3", "K3-z"),
+    ("vertical", "pallas"): ("K3", "K3-z"),
+}
+
+
+@contextlib.contextmanager
+def plain_calls():
+    """Counts the calls of the plain torch stages that R and K3 replace on
+    the default paths: the LPC recurrence loop, the region assembly, and
+    the winner's residuals of an emission (a RICE group's, and a VERTICAL
+    group's on the staged backends)."""
+    from dctpu_torch.codec import encode, predict
+    from dctpu_torch.kernels import vemit
+
+    counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0}
+    patched = [(predict, "reconstruct_lpc"), (encode, "assemble_rows"),
+               (vemit, "assemble_rows"), (predict, "chosen_residuals")]
+    saved = [getattr(mod, name) for mod, name in patched]
+
+    def counting(name, fn):
+        def call(*args, **kwargs):
+            counts[name] += 1
+            return fn(*args, **kwargs)
+        return call
+
+    for (mod, name), fn in zip(patched, saved):
+        setattr(mod, name, counting(name, fn))
+    try:
+        yield counts
+    finally:
+        for (mod, name), fn in zip(patched, saved):
+            setattr(mod, name, fn)
 
 
 def segments() -> int:
@@ -444,14 +568,15 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     enc_ms, dec_ms = {}, {}
     torch.cuda.synchronize()
     seg0 = segments()
-    t0 = time.perf_counter()
-    frame = compress(streams, cfg, ids, cads, device=dev, stage_ms=enc_ms,
-                     backend=backend)
-    seg1 = segments()
-    data = write_frame(frame)
-    t1 = time.perf_counter()
-    out = decompress(read_frame(data), device=dev, stage_ms=dec_ms)
-    t2 = time.perf_counter()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        frame = compress(streams, cfg, ids, cads, device=dev, stage_ms=enc_ms,
+                         backend=backend)
+        seg1 = segments()
+        data = write_frame(frame)
+        t1 = time.perf_counter()
+        out = decompress(read_frame(data), device=dev, stage_ms=dec_ms)
+        t2 = time.perf_counter()
     launches = read_counters()
 
     if len(out) != len(streams) or not all(
@@ -479,7 +604,8 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
               + json.dumps({k: round(v, 3) for k, v in again.items()}))
     print(f"{name} path decode stages (CUDA events, ms): "
           + json.dumps({k: round(v, 3) for k, v in dec_ms.items()}))
-    print(f"{name} path kernel launches: {json.dumps(launches)}", flush=True)
+    print(f"{name} path kernel launches: {json.dumps(launches)}; plain "
+          f"stage calls: {json.dumps(plain)}", flush=True)
     if cfg.coder == "adaptive" and (hist[0] == 0 or hist[1] == 0):
         fail(f"expected both coder groups, got {hist.tolist()}")
     missing = [k for k in NEEDS[cfg.coder, backend] if launches[k] == 0]
@@ -488,6 +614,17 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     extra = [k for k in NEVER.get((cfg.coder, backend), ()) if launches[k]]
     if extra:
         fail(f"kernels launched on the {name} path that it replaces: {extra}")
+    groups = int((hist > 0).sum())
+    staged = backend is not None
+    want_plain = {"reconstruct_lpc": 0,
+                  "assemble_rows": int(staged and hist[1] > 0),
+                  "chosen_residuals": int(hist[0] > 0)
+                  + int(staged and hist[1] > 0)}
+    if (launches["R"], launches["K3"], plain) != (
+            groups, 0 if staged else int(hist[1] > 0), want_plain):
+        fail(f"R launched {launches['R']} times (want {groups}, one per coder "
+             f"group), K3 {launches['K3']}, plain stages {plain} (want "
+             f"{want_plain})")
     n_lpc = len(cfg.candidates()) - 2
     if cfg.coder == "rice":
         z_form = launches["K6"] - launches["K6-xbp"] - launches["K6-lpc"]
@@ -538,6 +675,47 @@ def reduce_select_check(dev, streams) -> dict:
     if launches["K7"] != C or launches["K1"] or launches["K2"]:
         fail(f"backend='reduce' selection launched K7 {launches['K7']} times "
              f"(want {C}), K1 {launches['K1']}, K2 {launches['K2']} (want 0)")
+    return launches
+
+
+def zform_emit_check(dev, streams) -> dict:
+    """Phase 3, K3's z form: the VERTICAL emission of the 128 MiB corpus
+    under the vertical path's selection, through ``encode_vertical`` (the
+    reference's signature, on the winner's zigzag values), equals the
+    default emission (K3's x form). Returns the launches of the z-form
+    run."""
+    import torch
+
+    from dctpu_torch.codec import encode, predict, rice
+    from dctpu_torch.codec.api import build_blocks
+    from dctpu_torch.config import CodecConfig
+
+    cfg = CodecConfig(coder="vertical")
+    L = cfg.block_len
+    x, n, hist = (torch.from_numpy(a).to(dev)
+                  for a in build_blocks(streams, L)[:3])
+    choice, k = encode.select_blocks(x, n, hist, cfg)
+    z = rice.zigzag(predict.chosen_residuals(
+        x, hist, choice, predict.candidate_coeffs(cfg)))
+    want = encode.emit_blocks(x, n, hist, choice, k, cfg, "vertical")
+    encode.encode_vertical(z, n, L)  # warm-up, not counted
+    torch.cuda.synchronize()
+    reset_counters()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    got = encode.encode_vertical(z, n, L)
+    end.record()
+    torch.cuda.synchronize()
+    launches = read_counters()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        fail("K3's z form rows differ from the x form's at 128 MiB")
+    print(f"vertical/z-form emission: rows equal to the default emission's, "
+          f"{int(x.shape[0])} blocks; encode_vertical {start.elapsed_time(end):.3f}"
+          f" ms, CUDA events; launches {json.dumps(launches)}", flush=True)
+    if launches["K3-z"] != 1 or launches["K3"]:
+        fail(f"encode_vertical launched K3's z form {launches['K3-z']} times "
+             f"(want 1), its x form {launches['K3']} (want 0)")
     return launches
 
 
@@ -598,7 +776,8 @@ def cli_check() -> None:
 
 def ptxas_report(log: str) -> dict:
     """{kernel: "N registers, smem, spill"} from the nvcc -Xptxas=-v log;
-    a dct::...<Src i, VERT> template shows as "name<Src i, true|false>"."""
+    a dct::...<Src i, VERT> template shows as "name<Src i, true|false>",
+    a dct::...<bool> one as "name<true|false>"."""
     import re
 
     out, name, spill = {}, None, ""
@@ -610,9 +789,12 @@ def ptxas_report(log: str) -> dict:
             name = (mangled[short.end():short.end() + int(short.group(1))]
                     if short else mangled)
             arg = re.search(r"SrcE(\d)ELb(\d)", mangled)
+            flag = re.search(r"ILb(\d)EE", mangled)
             if arg:
                 vert = "true" if arg.group(2) == "1" else "false"
                 name += f"<Src {arg.group(1)}, {vert}>"
+            elif flag:
+                name += "<true>" if flag.group(1) == "1" else "<false>"
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -664,6 +846,7 @@ def main() -> int:
     for coder in CODERS:
         frames[coder], by_path[coder] = run_path(dev, coder, streams, ids, cads)
     by_path["adaptive/reduce-select"] = reduce_select_check(dev, streams)
+    by_path["vertical/z-form-emit"] = zform_emit_check(dev, streams)
     for coder in ("adaptive", "vertical"):
         data, by_path[path_name(coder, "pallas")] = run_path(
             dev, coder, streams, ids, cads, backend="pallas")
@@ -672,11 +855,12 @@ def main() -> int:
                  "default frame")
         print(f"{coder}/pallas frame byte-identical to the {coder} frame",
               flush=True)
-    # the count of the path each kernel was ported for: K1-K4 the adaptive
-    # path, K5a, K5b and K6's forms the rice path, K7 the "reduce"
-    # selection, K8 and K9 the adaptive path under backend="pallas"
+    # the count of the path each kernel was ported for: K1-K4 and R the
+    # adaptive path, K5a, K5b and K6's forms the rice path, K7 the "reduce"
+    # selection, K3's z form the z-form emission, K8 and K9 the adaptive
+    # path under backend="pallas"
     home = {"K5a": "rice", "K5b": "rice", "K6": "rice", "K6-xbp": "rice",
-            "K6-lpc": "rice",
+            "K6-lpc": "rice", "K3-z": "vertical/z-form-emit",
             "K7": "adaptive/reduce-select", "K8": "adaptive/pallas",
             "K9": "adaptive/pallas"}
     for key, r in recs.items():

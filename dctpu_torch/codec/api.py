@@ -288,7 +288,7 @@ def _decode_blocks_array(
     coders = hb.coder_arr()
     coeffs = torch.tensor(
         [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]],
-        dtype=torch.int64, device=device,
+        dtype=torch.int32, device=device,
     )
     off_h = hb.word_offsets(L)
 

@@ -4,14 +4,15 @@ The counterpart of ``dctpu/codec/decode.py``'s decode_blocks, in its two
 stages so that each can be timed: ``decode_z`` (VERTICAL rows through K4,
 ``kernels/vdec.py``, at every block length; RICE rows through K5b,
 ``kernels/unpack.py``), then ``reconstruct`` (unzigzag and the predictor
-inverse). Every block decodes on its own (FORMAT §2.1).
+inverse, through R, ``kernels/reconstruct.py``). Every block decodes on its
+own (FORMAT §2.1).
 """
 
 from __future__ import annotations
 
 import torch
 
-from dctpu_torch.codec import predict, rice
+from dctpu_torch.kernels import reconstruct as recon
 from dctpu_torch.kernels.unpack import rice_unpack
 from dctpu_torch.kernels.vdec import decode_vertical
 
@@ -24,10 +25,6 @@ def decode_z(payload, k, n, block_len: int, coder: str) -> torch.Tensor:
 
 
 def reconstruct(z, n, predictor, table_idx, history, table_coeffs) -> torch.Tensor:
-    """Zigzag values -> samples [B, L] int32, zeros past n."""
-    x = predict.reconstruct_all(
-        rice.unzigzag(z), history, predictor, table_coeffs, table_idx
-    )
-    L = x.shape[1]
-    valid = torch.arange(L, device=x.device)[None, :] < n.to(torch.int64)[:, None]
-    return torch.where(valid, x, 0)
+    """Zigzag values -> samples [B, L] int32, zeros past n; table_coeffs
+    [T, 4] int32. One launch of R per call on a card."""
+    return recon.reconstruct(z, n, predictor, table_idx, history, table_coeffs)

@@ -13,9 +13,11 @@ for DELTA and DOUBLE_DELTA and one per LPC candidate, also read straight
 from the samples (the TPU ran K6 on each candidate's zigzag values,
 ``rice.choose_k_auto``).
 coder="vertical": the bit-length cost of each candidate's zigzag values,
-plain torch (XLA on the TPU too). Emission derives the winner's
-zigzag values and runs the coder of the group: K3 plus the region
-assembly for VERTICAL, K5a for RICE.
+plain torch (XLA on the TPU too). Emission runs the coder of the group:
+for VERTICAL, K3's x form, which derives each block's chosen residuals
+from the samples and writes the payload rows (the TPU ran its emit kernel
+on zigzag values derived in XLA, then assembled the rows in XLA); for
+RICE, the winner's zigzag values in torch, then K5a.
 
 ``backend`` is the reference's encode-side kernel choice
 (``dctpu/codec/encode.py``, ``dctpu/kernels/api.py``). Every name gives
@@ -24,7 +26,8 @@ the same frame; it only picks the implementation of each stage:
   * ``None`` / ``"auto"``, and ``"scan"``, ``"merge"``, ``"scatter"`` (the
     reference's XLA packers; the port's one packer is K5a): as above;
   * ``"pallas"`` (any name starting with it, for VERTICAL): VERTICAL
-    emission takes the staged branch, K9 then the width rule then K8;
+    emission takes the staged branch on the winner's zigzag values, K9
+    then the width rule then K8, then the region assembly in torch;
   * ``"reduce"``: adaptive selection runs K7 for every candidate;
   * ``"bp"``: as ``"auto"`` for selection and VERTICAL emission;
   * ``"xla"``, the reference's portable opt-out: as ``"auto"``, but
@@ -57,7 +60,7 @@ from dctpu_torch.kernels.rice_totals import rice_totals_lpc, rice_totals_xbp
 from dctpu_torch.kernels.select_bp import adaptive_totals_lpc, adaptive_totals_xbp
 from dctpu_torch.kernels.select_reduce import adaptive_totals_reduce
 from dctpu_torch.kernels.transpose import grouped_bit_transpose32
-from dctpu_torch.kernels.vemit import vertical_emit
+from dctpu_torch.kernels.vemit import vertical_emit_rows, vertical_emit_rows_z
 from dctpu_torch.kernels.vertical import (
     assemble_rows,
     exceed_counts,
@@ -204,17 +207,15 @@ def _emit_staged(z: torch.Tensor, n: torch.Tensor, block_len: int):
 def encode_vertical(
     z: torch.Tensor, n: torch.Tensor, block_len: int, exc_backend: str = "mega"
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """VERTICAL emit, then the region assembly. Returns (payload
+    """VERTICAL emission of zigzag values. Returns (payload
     [B, SW + S*REGION_PAD] int32 bit patterns, bit_len [B] int64).
 
     exc_backend, as in the reference's vertical_xla.encode_vertical:
-    "mega" runs the whole per-sub analysis in K3; "pallas" and "xla" the
-    staged branch with K9 and K8."""
+    "mega" runs K3's z form, which writes the rows; "pallas" and "xla" the
+    staged branch with K9 and K8, then the region assembly."""
     if exc_backend == "mega":
-        emitted = vertical_emit(z, n, block_len)
-    else:
-        emitted = _emit_staged(z, n, block_len)
-    planes, b, words, n_exc, e, pos_words, vals = emitted
+        return vertical_emit_rows_z(z, n, block_len)
+    planes, b, words, n_exc, e, pos_words, vals = _emit_staged(z, n, block_len)
     payload = assemble_rows(planes, b, n_exc, e, pos_words, vals, block_len)
     return payload, 32 * words.to(torch.int64).sum(1)
 
@@ -232,18 +233,18 @@ def emit_blocks(
     """Emit one coder group with a given (candidate, k) selection.
 
     Returns (payload rows [B, W] int32 bit patterns, bit_len [B] int64).
-    The winner's zigzag values are derived per candidate over the blocks
-    that chose it. A RICE group raises ValueError for a backend name the
-    reference's packer does not know."""
+    VERTICAL: K3's x form, one launch, except under the staged backend
+    names. Otherwise the winner's zigzag values are derived per candidate
+    over the blocks that chose it. A RICE group raises ValueError for a
+    backend name the reference's packer does not know."""
     if coder != "vertical" and backend not in RICE_PACK_BACKENDS:
         raise ValueError(f"unknown kernel backend {backend!r}")
-    B, L = x.shape
-    z = torch.zeros((B, L), dtype=torch.int32, device=x.device)
-    for ci in range(len(cfg.candidates())):
-        rows = torch.nonzero(choice == ci).squeeze(1)
-        if rows.numel():
-            z[rows] = candidate_z(x[rows], history[rows], cfg, ci)
+    staged = backend == "xla" or (backend or "").startswith("pallas")
+    if coder == "vertical" and not staged:
+        return vertical_emit_rows(x, history, n, choice, cfg)
+    L = x.shape[1]
+    r = predict.chosen_residuals(x, history, choice, predict.candidate_coeffs(cfg))
+    z = rice.zigzag(r)
     if coder == "vertical":
-        staged = backend == "xla" or (backend or "").startswith("pallas")
-        return encode_vertical(z, n, L, "pallas" if staged else "mega")
+        return encode_vertical(z, n, L, "pallas")
     return rice_pack(z, k, n, L)

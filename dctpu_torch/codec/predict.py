@@ -9,7 +9,10 @@ an arithmetic ``>> 16``, as the format prescribes.
   - DELTA / DOUBLE_DELTA reconstruction: prefix sums;
   - LPC reconstruction: a true recurrence (the Q16 floor shift is not
     associative), run here as a Python loop over the samples, vectorized over
-    the blocks. It is the decode path's slowest plain-torch stage.
+    the blocks.
+
+The reconstruction functions are the plain twin of kernel R
+(``kernels/reconstruct.py``), which runs the decode on a card.
 """
 
 from __future__ import annotations
@@ -47,6 +50,29 @@ def residuals_for_candidate(
                 acc = acc + int(c) * lagged[j]  # wrapping int64
         return to_i32(x64 - (acc >> LPC_SHIFT))
     raise ValueError(f"unknown predictor {predictor}")
+
+
+def candidate_coeffs(cfg) -> list:
+    """[(predictor, four Q16 coefficients)] of ``cfg.candidates()`` in
+    order; (0, 0, 0, 0) for DELTA and DOUBLE_DELTA."""
+    return [
+        (p, tuple(cfg.lpc_tables[ti].coeffs) if p == LPC else (0, 0, 0, 0))
+        for p, ti in cfg.candidates()
+    ]
+
+
+def chosen_residuals(
+    x: torch.Tensor, history: torch.Tensor, choice: torch.Tensor, candidates
+) -> torch.Tensor:
+    """Residuals [B, L] int32 of each block's chosen candidate: block i
+    takes ``candidates[choice[i]]``, a (predictor, coeffs) pair. Each
+    candidate is derived over the blocks that chose it."""
+    r = torch.zeros_like(x, dtype=torch.int32)
+    for ci, (pred, coeffs) in enumerate(candidates):
+        rows = torch.nonzero(choice == ci).squeeze(1)
+        if rows.numel():
+            r[rows] = residuals_for_candidate(x[rows], history[rows], pred, coeffs)
+    return r
 
 
 # ------------------------------------------------------------------ decode

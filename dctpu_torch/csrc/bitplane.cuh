@@ -26,14 +26,23 @@ __device__ __forceinline__ int bit_length(uint32_t z) {
   return 32 - __clz(static_cast<int>(z));
 }
 
-__device__ __forceinline__ uint32_t zigzag(int32_t r) {
-  return (static_cast<uint32_t>(r) << 1) ^ static_cast<uint32_t>(r >> 31);
-}
-
 // Plane words of sub-block s: ceil(cap / 32), cap = samples the sub covers.
 __device__ __forceinline__ int plane_words(int s, int block_len) {
   const int cap = min(kSub, block_len - s * kSub);
   return (cap + 31) >> 5;
+}
+
+// Lane b's value of v at bin b + d (v held one bin per lane), 0 past bin 32.
+__device__ __forceinline__ int bin_above(int v, int d) {
+  const int t = __shfl_down_sync(kFull, v, d);
+  return (threadIdx.x & 31) + d < 32 ? t : 0;
+}
+
+// E[lane] = sum of v over lanes >= lane.
+__device__ __forceinline__ int suffix_sum(int v) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) v += bin_above(v, d);
+  return v;
 }
 
 // Exceed table of the current row: e_sh[b] = #{samples with bit length > b}

@@ -43,11 +43,14 @@
 // suffix scan and runs bitplane.cuh's select_width on it: no block barrier
 // inside the row loop. The x forms stage each row and its four preceding
 // samples (or the history) in the warp's shared memory, so that lag m is a
-// shifted read; the LPC accumulator wraps as uint64_t, then takes an
-// arithmetic >> 16 as int64_t. Epilogue: one __syncthreads, then warp c
-// sums the warps' counters and lane k forms L(k) from the identity with
-// shuffles. No atomics across thread blocks, no second pass.
+// shifted read, and take the residuals from residual.cuh (the LPC
+// accumulator wraps as uint64_t, then takes an arithmetic >> 16 as
+// int64_t), the code that vemit.cu's x form runs too. Epilogue: one
+// __syncthreads, then warp c sums the warps' counters and lane k forms L(k)
+// from the identity with shuffles. No atomics across thread blocks, no
+// second pass.
 #include "bitplane.cuh"
+#include "residual.cuh"
 
 namespace dct {
 
@@ -56,10 +59,6 @@ constexpr int kRowWarps = 4;
 // The source of the candidates' zigzag values.
 enum class Src { kZigzag, kDeltas, kLpc };
 
-struct Lpc {
-  int c0, c1, c2, c3;  // Q16 coefficients, int32 as in the frame
-};
-
 // Histogram increment of a nonzero z with lz = __clz(z): 1 in byte 0 (C),
 // bits b-2, b-3, b-4 of z in bytes 1..3 (S_1..S_3). After z << lz the
 // leading one is bit 31 and the three bits t follow it; the multiply
@@ -67,19 +66,6 @@ struct Lpc {
 __device__ __forceinline__ uint32_t length_inc(uint32_t z, int lz) {
   const uint32_t t = ((z << lz) >> 28) & 7u;
   return ((t * 0x01008040u) & 0x01010100u) | 1u;
-}
-
-// Lane b's value of v at bin b + d (v held one bin per lane), 0 past bin 32.
-__device__ __forceinline__ int bin_above(int v, int d) {
-  const int t = __shfl_down_sync(kFull, v, d);
-  return (threadIdx.x & 31) + d < 32 ? t : 0;
-}
-
-// E[lane] = sum of v over lanes >= lane.
-__device__ __forceinline__ int suffix_sum(int v) {
-#pragma unroll
-  for (int d = 1; d < 32; d <<= 1) v += bin_above(v, d);
-  return v;
 }
 
 // out [B, NC, k_max + 1 + VERT]: the RICE totals of each candidate, then
@@ -126,43 +112,17 @@ select_lengths_kernel(const int32_t* __restrict__ src,
         z[0][i] = t < nb ? static_cast<uint32_t>(row[t]) : 0u;
       }
     } else {
-      // st[4 + j] = x_{base + j}; st[4 - m] = x_{base - m}, x_{-m} =
-      // history[m - 1]
       int32_t* st = stage[warp];
-#pragma unroll
-      for (int i = 0; i < kWarps; ++i) {
-        const int t = base + 32 * i + lane;
-        st[4 + 32 * i + lane] = t < nb ? row[t] : 0;
-      }
-      if (lane < 4) {
-        const int t = base - 4 + lane;
-        st[lane] = t >= 0 ? row[t] : hist[blk * 4 - 1 - t];
-      }
-      __syncwarp();
+      stage_row(st, row, hist + blk * 4, base, nb);
 #pragma unroll
       for (int i = 0; i < kWarps; ++i) {
         const int j = 4 + 32 * i + lane;
         const bool valid = base + 32 * i + lane < nb;
-        // wrapping int32 residuals, as predict.residuals_for_candidate
-        const uint32_t x0 = static_cast<uint32_t>(st[j]);
-        const uint32_t x1 = static_cast<uint32_t>(st[j - 1]);
-        const uint32_t x2 = static_cast<uint32_t>(st[j - 2]);
-        if constexpr (SRC == Src::kDeltas) {
-          const uint32_t d = x0 - x1;
-          z[0][i] = valid ? zigzag(static_cast<int32_t>(d)) : 0u;
-          z[1][i] = valid ? zigzag(static_cast<int32_t>(d - (x1 - x2))) : 0u;
-        } else {
-          // each product is exact in int64; the sum wraps mod 2^64
-          const uint64_t acc =
-              static_cast<uint64_t>(static_cast<int64_t>(lpc.c0) *
-                                    static_cast<int32_t>(x1)) +
-              static_cast<uint64_t>(static_cast<int64_t>(lpc.c1) *
-                                    static_cast<int32_t>(x2)) +
-              static_cast<uint64_t>(static_cast<int64_t>(lpc.c2) * st[j - 3]) +
-              static_cast<uint64_t>(static_cast<int64_t>(lpc.c3) * st[j - 4]);
-          const uint32_t pred =
-              static_cast<uint32_t>(static_cast<int64_t>(acc) >> 16);
-          z[0][i] = valid ? zigzag(static_cast<int32_t>(x0 - pred)) : 0u;
+#pragma unroll
+        for (int c = 0; c < NC; ++c) {
+          const int pred = SRC == Src::kLpc ? kLpc : c;  // kDeltas: c = 0, 1
+          const uint32_t r = residual(pred, lpc, st, j);
+          z[c][i] = valid ? zigzag(static_cast<int32_t>(r)) : 0u;
         }
       }
     }

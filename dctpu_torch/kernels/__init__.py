@@ -2,7 +2,7 @@
 and the plain-torch stages around them.
 
   select_bp    K1, K2  exact adaptive-selection totals
-  vemit        K3      VERTICAL emit analysis
+  vemit        K3      VERTICAL emission into the payload rows
   vdec         K4      VERTICAL decode
   pack         K5a     RICE bit packer
   unpack       K5b     RICE bit unpacker
@@ -10,5 +10,6 @@ and the plain-torch stages around them.
   select_reduce K7     K2's totals on K2's code (backend="reduce")
   exc_extract  K8      VERTICAL exceptions at given widths (backend="pallas")
   transpose    K9      grouped 32x32 bit transpose (backend="pallas")
+  reconstruct  R       unzigzag + predictor inverse (decode)
   vertical, ragged: plain torch (XLA code on the TPU)
 """

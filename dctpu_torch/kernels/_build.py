@@ -28,9 +28,9 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dctpu_torch"
 SOURCES = (
     "select.cu", "vemit.cu", "vdec.cu", "pack.cu", "unpack.cu", "exc.cu",
-    "transpose.cu",
+    "transpose.cu", "recon.cu",
 )
-HEADERS = ("bitplane.cuh",)
+HEADERS = ("bitplane.cuh", "residual.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
     *ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v",
@@ -43,7 +43,8 @@ SIGNATURES = {
     "dct_select_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dct_select_bp": (_P, _P, _P, _I, _I, _I, _P),
     "dct_select_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
-    "dct_vemit": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "dct_vemit_rows": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
+    "dct_vemit_rows_z": (_P, _P, _P, _P, _I, _I, _P),
     "dct_vdec": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
@@ -53,6 +54,7 @@ SIGNATURES = {
     "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),
     "dct_exc_extract": (_P, _P, _P, _P, _I, _P),
     "dct_bit_transpose": (_P, _P, _I, _P),
+    "dct_reconstruct": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
 }
 
 

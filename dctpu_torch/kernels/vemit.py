@@ -1,15 +1,25 @@
-"""K3: VERTICAL emit analysis per 128-sample sub-block row.
+"""K3: VERTICAL emission, straight into the staged payload rows.
 
-The counterpart of ``dctpu/kernels/vemit_pallas.py`` (``vertical_emit_mega``):
-the bit-plane transpose in disk bit order, the width b by the FORMAT §2.2
-min key (smallest b on ties), and the exceptions (at most EXC_CAP = 16)
-compacted in ascending position order. The b-dependent region assembly
-that follows is plain torch (``kernels/vertical.assemble_rows``), as it was
-XLA on the TPU. The CUDA kernel is in ``dctpu_torch/csrc/vemit.cu``.
+The counterpart of ``dctpu/kernels/vemit_pallas.py`` (``vertical_emit_mega``)
+plus the region assembly of ``dctpu/kernels/vertical_xla.py``
+``encode_vertical`` that followed it on the TPU. The CUDA kernel
+(``dctpu_torch/csrc/vemit.cu``) writes the payload rows and bit lengths of
+``encode.emit_blocks(..., coder="vertical")`` in one launch per coder
+group, in two forms:
 
-``vertical_emit`` runs the plain torch twin for tensors on the CPU and
-launches the kernel for tensors on a CUDA device; ``vertical_emit.launches``
-counts the kernel launches.
+  * :func:`vertical_emit_rows`, the x form: it derives each block's chosen
+    candidate's residuals from the raw samples, as the selection kernels
+    do; the default VERTICAL emission runs it;
+  * :func:`vertical_emit_rows_z`, the z form, on zigzag values: the
+    reference's ``encode_vertical(z, n, L)`` signature.
+
+:func:`vertical_emit` is the per-sub-block analysis of the reference's
+``vertical_emit_mega`` (planes, width, exceptions) in plain torch; with
+``kernels/vertical.assemble_rows`` after it, it is both forms' twin.
+
+Each wrapper runs its plain torch twin for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; its ``launches`` attribute counts
+the kernel launches.
 """
 
 from __future__ import annotations
@@ -17,15 +27,21 @@ from __future__ import annotations
 import torch
 
 from dctpu_torch._bits import to_i32
+from dctpu_torch.codec import predict, rice
 from dctpu_torch.constants import EXC_CAP, SUB_BLOCK, subs_per_block
 from dctpu_torch.kernels import _build
+from dctpu_torch.kernels.select_bp import _check_x, _lpc_coeffs
 from dctpu_torch.kernels.vertical import (
+    assemble_rows,
     bit_transpose32,
     exceed_counts,
+    padded_words_vertical,
     plane_word_counts,
     select_width,
     sub_rows,
 )
+
+MAX_SUBS = 512  # the kernel's sync table: block_len < 65536 (n is a u16)
 
 
 def _pack_positions(cpos: torch.Tensor) -> torch.Tensor:
@@ -34,8 +50,16 @@ def _pack_positions(cpos: torch.Tensor) -> torch.Tensor:
     return (cpos.to(torch.int64).reshape(-1, 4, 4) << sh).sum(-1)
 
 
-def vertical_emit_plain(z: torch.Tensor, n: torch.Tensor, block_len: int):
-    """Plain twin of K3; returns the 7 outputs of :func:`vertical_emit`."""
+def vertical_emit(z: torch.Tensor, n: torch.Tensor, block_len: int):
+    """The reference's vertical_emit_mega in plain torch, on z [B, L] int32
+    zigzag bit patterns (garbage past n), n [B].
+
+    Returns (plane_region [B, S, 128] p-major, best_b, best_words,
+    best_exc, best_e [B, S], pos_words [B, S, 4], vals [B, S, 16]), u32
+    words as int32 bit patterns: the bit planes in disk bit order, the
+    width b by the FORMAT §2.2 min key (smallest b on ties), and the
+    exceptions (at most EXC_CAP = 16) compacted in ascending position
+    order."""
     B = z.shape[0]
     S = subs_per_block(block_len)
     rows = sub_rows(z, n, block_len)  # [R, 128] int64
@@ -67,43 +91,93 @@ def vertical_emit_plain(z: torch.Tensor, n: torch.Tensor, block_len: int):
     )
 
 
-def vertical_emit(z: torch.Tensor, n: torch.Tensor, block_len: int):
-    """K3 on z [B, L] int32 zigzag bit patterns (garbage past n), n [B].
+def vertical_emit_rows_z_plain(z: torch.Tensor, n: torch.Tensor, block_len: int):
+    """Plain twin of K3's z form: :func:`vertical_emit`, then the region
+    assembly."""
+    planes, b, words, n_exc, e, pos_words, vals = vertical_emit(z, n, block_len)
+    payload = assemble_rows(planes, b, n_exc, e, pos_words, vals, block_len)
+    return payload, 32 * words.to(torch.int64).sum(1)
 
-    Returns (plane_region [B, S, 128] p-major, best_b, best_words,
-    best_exc, best_e [B, S], pos_words [B, S, 4], vals [B, S, 16]), u32
-    words as int32 bit patterns — the outputs of the reference's
-    vertical_emit_mega."""
-    if z.device.type == "cpu":
-        return vertical_emit_plain(z, n, block_len)
-    if z.device.type != "cuda":
-        raise ValueError(f"vertical_emit: unsupported device {z.device}")
-    n = n.to(torch.int32).contiguous()
-    B, L = z.shape
-    _build.check_tensors("vertical_emit", z, n)
-    if L != block_len or n.shape != (B,):
-        raise ValueError("vertical_emit: expects z [B, block_len], n [B]")
-    S = subs_per_block(block_len)
-    R = B * S
-    kw = dict(dtype=torch.int32, device=z.device)
-    planes = torch.empty((R, 4 * 32), **kw)
-    meta = torch.empty((R, 4), **kw)
-    cval = torch.empty((R, EXC_CAP), **kw)
-    cpos = torch.empty((R, EXC_CAP), **kw)
-    if R:
-        err = _build.library().dct_vemit(
-            z.data_ptr(), n.data_ptr(), planes.data_ptr(), meta.data_ptr(),
-            cval.data_ptr(), cpos.data_ptr(), B, L, _build.stream_of(z),
-        )
-        _build.check(err, "dct_vemit")
-        vertical_emit.launches += 1
-    sh = (B, S)
+
+def _rows_out(B: int, block_len: int, device):
+    if subs_per_block(block_len) > MAX_SUBS:
+        raise ValueError(f"block_len {block_len} too large for the sync table")
     return (
-        planes.reshape(sh + (4 * 32,)),
-        *(meta[:, j].reshape(sh) for j in range(4)),
-        to_i32(_pack_positions(cpos)).reshape(sh + (4,)),
-        cval.reshape(sh + (EXC_CAP,)),
+        torch.empty((B, padded_words_vertical(block_len)), dtype=torch.int32,
+                    device=device),
+        torch.empty(B, dtype=torch.int64, device=device),
     )
 
 
-vertical_emit.launches = 0
+def vertical_emit_rows_z(z: torch.Tensor, n: torch.Tensor, block_len: int):
+    """K3, z form: z [B, block_len] int32 zigzag bit patterns (garbage past
+    n), n [B] -> (payload [B, SW + S*REGION_PAD] int32 bit patterns,
+    bit_len [B] int64)."""
+    if z.device.type == "cpu":
+        return vertical_emit_rows_z_plain(z, n, block_len)
+    if z.device.type != "cuda":
+        raise ValueError(f"vertical_emit_rows_z: unsupported device {z.device}")
+    n = n.to(torch.int32).contiguous()
+    _build.check_tensors("vertical_emit_rows_z", z, n)
+    B, L = z.shape
+    if L != block_len or n.shape != (B,):
+        raise ValueError("vertical_emit_rows_z: expects z [B, block_len], n [B]")
+    payload, bit_len = _rows_out(B, L, z.device)
+    if B:
+        err = _build.library().dct_vemit_rows_z(
+            z.data_ptr(), n.data_ptr(), payload.data_ptr(), bit_len.data_ptr(),
+            B, L, _build.stream_of(z),
+        )
+        _build.check(err, "dct_vemit_rows_z")
+        vertical_emit_rows_z.launches += 1
+    return payload, bit_len
+
+
+vertical_emit_rows_z.launches = 0
+
+
+def vertical_emit_rows_plain(x, history, n, choice, cfg):
+    """Plain twin of K3's x form: each block's chosen candidate's zigzag
+    residuals, then the z form's twin."""
+    r = predict.chosen_residuals(x, history, choice, predict.candidate_coeffs(cfg))
+    return vertical_emit_rows_z_plain(rice.zigzag(r), n, x.shape[1])
+
+
+def vertical_emit_rows(
+    x: torch.Tensor,        # [B, L] int32 raw samples (garbage past n)
+    history: torch.Tensor,  # [B, 4] int32 pre-block history
+    n: torch.Tensor,        # [B] valid counts
+    choice: torch.Tensor,   # [B] index into cfg.candidates()
+    cfg,                    # the CodecConfig whose candidates choice indexes
+):
+    """K3, x form: the VERTICAL payload rows of each block's chosen
+    candidate, its residuals derived from x in the kernel.
+
+    Returns (payload [B, SW + S*REGION_PAD] int32 bit patterns, bit_len [B]
+    int64). Raises ValueError for an LPC coefficient outside int32, the
+    frame's type."""
+    cands = [(p, _lpc_coeffs(c)) for p, c in predict.candidate_coeffs(cfg)]
+    if x.device.type == "cpu":
+        return vertical_emit_rows_plain(x, history, n, choice, cfg)
+    if x.device.type != "cuda":
+        raise ValueError(f"vertical_emit_rows: unsupported device {x.device}")
+    n = _check_x("vertical_emit_rows", x, history, n, cfg.block_len)
+    choice = choice.to(torch.int32).contiguous()
+    B, L = x.shape
+    if choice.shape != (B,):
+        raise ValueError("vertical_emit_rows: expects choice [B]")
+    table = torch.tensor([[p, *c] for p, c in cands], dtype=torch.int32,
+                         device=x.device)
+    payload, bit_len = _rows_out(B, L, x.device)
+    if B:
+        err = _build.library().dct_vemit_rows(
+            x.data_ptr(), history.data_ptr(), n.data_ptr(), choice.data_ptr(),
+            table.data_ptr(), len(cands), payload.data_ptr(), bit_len.data_ptr(),
+            B, L, _build.stream_of(x),
+        )
+        _build.check(err, "dct_vemit_rows")
+        vertical_emit_rows.launches += 1
+    return payload, bit_len
+
+
+vertical_emit_rows.launches = 0

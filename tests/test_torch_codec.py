@@ -29,6 +29,7 @@ from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
     exc_extract,
     pack,
+    reconstruct,
     rice_totals,
     select_bp,
     select_reduce,
@@ -227,7 +228,9 @@ def test_wrappers_refuse_other_devices():
     calls = [
         lambda: select_bp.adaptive_totals_bp(z, n, 256, 24),
         lambda: select_bp.adaptive_totals_xbp(z, h, n, 256, 24),
-        lambda: vemit.vertical_emit(z, n, 256),
+        lambda: vemit.vertical_emit_rows_z(z, n, 256),
+        lambda: vemit.vertical_emit_rows(z, h, n, n, CodecConfig(block_len=256)),
+        lambda: reconstruct.reconstruct(z, n, n, n, h, h),
         lambda: vdec.decode_vertical(rows, n, 256),
         lambda: rice_totals.rice_totals(z, n, 256, 24),
         lambda: rice_totals.rice_totals_xbp(z, h, n, 256, 24),
@@ -249,7 +252,7 @@ def test_port_imports_no_jax():
         "import dctpu_torch.codec.api, dctpu_torch.kernels.vdec, chip_smoke\n"
         "import dctpu_torch.cli.main, dctpu_torch.codec.select\n"
         "import dctpu_torch.kernels.select_reduce, dctpu_torch.kernels.exc_extract\n"
-        "import dctpu_torch.kernels.transpose\n"
+        "import dctpu_torch.kernels.transpose, dctpu_torch.kernels.reconstruct\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dctpu' or m.startswith('dctpu.')]\n"
         "assert not bad, bad\n"

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1-K9 (and the x forms of K2 and K6) against their
-plain twins, on the card.
+"""The CUDA kernels K1-K9 and R (and the x forms of K2, K3 and K6) against
+their plain twins, on the card, and the launches of the round trips.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -13,13 +13,14 @@ import pytest
 import torch
 
 from dctpu_torch._bits import to_i32
-from dctpu_torch.codec import api, encode
+from dctpu_torch.codec import api, encode, predict
 from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
 from dctpu_torch.corpus import synth_corpus
 from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
     exc_extract,
     pack,
+    reconstruct,
     rice_totals,
     select_bp,
     select_reduce,
@@ -28,7 +29,7 @@ from dctpu_torch.kernels import (
     vdec,
     vemit,
 )
-from dctpu_torch.kernels.vertical import assemble_rows, sub_rows
+from dctpu_torch.kernels.vertical import sub_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -76,12 +77,39 @@ def test_kernels_match_twins_on_card(cuda, L):
     for coeffs in [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP]:
         _same(select_bp.adaptive_totals_lpc(x, h, n, coeffs, L, 24),
               select_bp.adaptive_totals_lpc_plain(x, h, n, coeffs, L, 24))
-    emitted = vemit.vertical_emit(z, n, L)
-    _same(emitted, vemit.vertical_emit_plain(z, n, L))
-    planes, b, _, n_exc, e, pos_words, vals = emitted
-    rows = assemble_rows(planes, b, n_exc, e, pos_words, vals, L)
+    emitted = vemit.vertical_emit_rows_z(z, n, L)
+    _same(emitted, vemit.vertical_emit_rows_z_plain(z, n, L))
+    rows = emitted[0]
     _same((vdec.decode_vertical(rows, n, L),),
           (vdec.decode_vertical_plain(rows, n, L),))
+
+
+# every default table and the wrap table
+TABLES = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP]
+
+
+@pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
+def test_emit_rows_and_reconstruct_match_twins_on_card(cuda, L):
+    """K3 in both forms, every candidate chosen (the wrap table too), and R
+    on every predictor and table, with histories at the int32 extremes."""
+    z, x, h, n, _ = (t.to(cuda) for t in _inputs(L, 17))
+    B = x.shape[0]
+    h[::5] = torch.tensor([-(2**31), 2**31 - 1, -(2**31), 2**31 - 1],
+                          dtype=torch.int32)
+    cfg = CodecConfig(block_len=L, coder="vertical", lpc_tables=tuple(
+        LpcTable(4, c) for c in TABLES))
+    C = len(cfg.candidates())
+    choice = (torch.arange(B, device=cuda) % C).to(torch.int32)
+    _same(vemit.vertical_emit_rows(x, h, n, choice, cfg),
+          vemit.vertical_emit_rows_plain(x, h, n, choice, cfg))
+    _same(vemit.vertical_emit_rows_z(z, n, L),
+          vemit.vertical_emit_rows_z_plain(z, n, L))
+    pred = (torch.arange(B, device=cuda) % 3).to(torch.int32)
+    table_idx = (torch.arange(B, device=cuda) % len(TABLES)).to(torch.int32)
+    coeffs = torch.tensor(TABLES, dtype=torch.int32, device=cuda)
+    got = reconstruct.reconstruct(z, n, pred, table_idx, h, coeffs)
+    want = reconstruct.reconstruct_plain(z, n, pred, table_idx, h, coeffs)
+    _same((got,), (want,))
 
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
@@ -161,7 +189,7 @@ def test_backend_kernels_match_twins_on_card(cuda, L):
           select_reduce.adaptive_totals_reduce_plain(z, n, L, 24))
     B = z.shape[0]
     zs = to_i32(sub_rows(z, n, L)).reshape(B, -1, 128)
-    b = vemit.vertical_emit_plain(z, n, L)[1].clone()
+    b = vemit.vertical_emit(z, n, L)[1].clone()
     b[0], b[1] = 0, 32
     _same(exc_extract.exc_extract(zs, b), exc_extract.exc_extract_plain(zs, b))
     rows = zs.reshape(-1, 128)
@@ -179,7 +207,7 @@ def test_backend_paths_on_card(cuda):
                                       cumulative_frac=0.5)
     want = write_frame(api.compress(streams, cfg, ids, cads, device=cuda))
     assert set(read_frame(want).blocks.coder_arr().tolist()) == {0, 1}
-    counted = (vemit.vertical_emit, exc_extract.exc_extract,
+    counted = (vemit.vertical_emit_rows, exc_extract.exc_extract,
                transpose.grouped_bit_transpose32, select_bp.adaptive_totals_xbp,
                select_bp.adaptive_totals_lpc, pack.rice_pack)
     for backend in ("pallas", "xla"):
@@ -206,3 +234,32 @@ def test_backend_paths_on_card(cuda):
     assert select_bp.adaptive_totals_lpc.launches == 0
     with pytest.raises(ValueError, match="unknown kernel backend"):
         api.compress(streams, cfg, ids, cads, device=cuda, backend="reduce")
+
+
+@pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
+def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
+    """R once per coder group in every decode, K3's x form once per VERTICAL
+    group; the plain stages it replaces never run on the card."""
+    cfg = CodecConfig(block_len=1000, coder=coder)
+    streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
+                                      cumulative_frac=0.5)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a plain stage ran on the card")
+
+    monkeypatch.setattr(encode, "assemble_rows", refuse)
+    monkeypatch.setattr(vemit, "assemble_rows", refuse)
+    monkeypatch.setattr(predict, "reconstruct_lpc", refuse)
+    if coder == "vertical":  # the rice emission still derives z in torch
+        monkeypatch.setattr(predict, "chosen_residuals", refuse)
+    counted = (reconstruct.reconstruct, vemit.vertical_emit_rows,
+               vemit.vertical_emit_rows_z)
+    for fn in counted:
+        fn.launches = 0
+    frame = api.compress(streams, cfg, ids, cads, device=cuda)
+    groups = len(set(frame.blocks.coder_arr().tolist()))
+    vert = int((frame.blocks.coder_arr() == 1).any())
+    out = api.decompress(read_frame(write_frame(frame)), device=cuda)
+    assert all(np.array_equal(a, b) for a, b in zip(streams, out))
+    assert [fn.launches for fn in counted] == [groups, vert, 0]
+    assert groups == (2 if coder == "adaptive" else 1)

@@ -1,4 +1,5 @@
-"""K3 plain twin, VERTICAL/RICE emission and compaction vs the JAX reference.
+"""K3 (its plain analysis and both row forms' twins), VERTICAL/RICE emission
+and compaction vs the JAX reference.
 
 The reference emit kernel runs in interpret mode on the CPU; the reference
 emission takes its portable XLA formulation (backend="xla").
@@ -15,10 +16,11 @@ from dctpu.codec import api as ref_api
 from dctpu.codec import encode as ref_encode
 from dctpu.codec import vertical_host
 from dctpu.config import CodecConfig as RefConfig
+from dctpu.config import LpcTable as RefLpcTable
 from dctpu.kernels.vemit_pallas import vertical_emit_mega
 from dctpu.kernels.vertical_xla import encode_vertical as ref_encode_vertical
 from dctpu_torch.codec import api, encode
-from dctpu_torch.config import from_reference
+from dctpu_torch.config import DEFAULT_LPC_TABLES, from_reference
 from dctpu_torch.kernels import ragged, vemit
 from tests.test_adaptive import _mixed_streams
 
@@ -132,3 +134,104 @@ def test_group_emit_and_compaction_match_reference(mixed_blocks, gid, gname):
     words, wc = api.compact_enc_payload(payload, bl, 512, gname)
     assert np.array_equal(words.numpy().view(np.uint32), w_ref)
     assert int(wc.sum()) == w_ref.size
+
+
+@pytest.mark.parametrize("L", [256, 200, 4096, "stress"])
+def test_rows_z_form_matches_reference(rng, L):
+    """K3's z form (its twin on the CPU) == the reference's encode_vertical
+    rows and bit lengths."""
+    z, n = _cases(rng, L)
+    L = z.shape[1]
+    p_ref, bl_ref = ref_encode_vertical(
+        jnp.asarray(z), jnp.asarray(n), L, exc_backend="xla"
+    )
+    p, bl = vemit.vertical_emit_rows_z(
+        torch.from_numpy(z.view(np.int32)), torch.from_numpy(n), L
+    )
+    assert p.dtype == torch.int32 and bl.dtype == torch.int64
+    assert np.array_equal(p.numpy().view(np.uint32), np.asarray(p_ref))
+    assert np.array_equal(bl.numpy(), np.asarray(bl_ref))
+
+
+# every product is 2**62 on the -2**31 samples of row 0: the int64 sum wraps
+WRAP = (-(2**31),) * 4
+
+
+def _x_inputs(rng, L, B=21):
+    """Raw samples for the x form: smooth, random, zero and -2**31 rows,
+    histories at the int32 extremes, ragged n (full, none, one sample, a
+    sub-block boundary, L - 57), and each block's choice cycling through
+    every candidate of the default tables plus the wrap table."""
+    x = rng.integers(-(2**28), 2**28, size=(B, L)).astype(np.int32)
+    x[::2] = (np.cumsum(rng.integers(-3, 4, size=(B, L)), axis=1)[::2]
+              + 1000).astype(np.int32)
+    x[0, :9] = np.int32(-(2**31))
+    x[1] = 0
+    h = rng.integers(-(2**31), 2**31, size=(B, 4)).astype(np.int32)
+    h[::5] = np.array([-(2**31), 2**31 - 1, -(2**31), 2**31 - 1], np.int32)
+    n = np.full(B, L, np.int32)
+    n[-1] = L - 57
+    n[-2] = 0
+    n[3] = 128
+    n[5] = 1
+    return x, h, n
+
+
+def _x_stress(rng, L=256, B=17):
+    """Small samples with 0..16 spikes per block: each spike gives DELTA two
+    exceptions, so the counts pass EXC_CAP and move b."""
+    x = rng.integers(0, 8, size=(B, L)).astype(np.int32)
+    for i in range(B):
+        ne = i % 17
+        pos = rng.choice(L, size=ne, replace=False)
+        x[i, pos] = (1 << rng.integers(4, 30, size=ne)).astype(np.int32)
+    h = np.zeros((B, 4), np.int32)
+    return x, h, np.full(B, L, np.int32)
+
+
+@pytest.mark.parametrize("L", [4096, 200, "stress"])
+def test_rows_x_form_matches_reference(rng, L):
+    """K3's x form (its twin on the CPU), every candidate chosen, == the
+    reference's emit_blocks rows of the VERTICAL coder."""
+    x, h, n = _x_stress(rng) if L == "stress" else _x_inputs(rng, L)
+    L = x.shape[1]
+    ref_cfg = RefConfig(
+        block_len=L, coder="vertical",
+        lpc_tables=tuple(RefLpcTable(t.order, t.coeffs) for t in DEFAULT_LPC_TABLES)
+        + (RefLpcTable(4, WRAP),),
+    )
+    C = len(ref_cfg.candidates())
+    choice = (np.arange(x.shape[0]) % C).astype(np.int32)
+    enc = ref_encode.emit_blocks(
+        jnp.asarray(x), jnp.asarray(n), jnp.asarray(h), jnp.asarray(choice),
+        jnp.zeros(x.shape[0], jnp.int32), ref_cfg, "vertical", "xla",
+    )
+    cfg = from_reference(dataclasses.asdict(ref_cfg))
+    t = [torch.from_numpy(a) for a in (x, h, n, choice)]
+    p, bl = vemit.vertical_emit_rows(*t, cfg)
+    assert np.array_equal(p.numpy().view(np.uint32), np.asarray(enc.payload))
+    assert np.array_equal(bl.numpy(), np.asarray(enc.bit_len))
+    # the default emission is the x form
+    xt, ht, nt, ct = t
+    p2, bl2 = encode.emit_blocks(xt, nt, ht, ct, torch.zeros_like(ct), cfg, "vertical")
+    assert torch.equal(p2, p) and torch.equal(bl2, bl)
+
+
+def test_vertical_emit_computes_no_candidate_z(mixed_blocks, monkeypatch):
+    """The default VERTICAL emission is K3's x form: it runs neither
+    ``candidate_z`` nor encode's region assembly, which the staged branch
+    still runs."""
+    ref_cfg, x, n, h, choice, coder, k = mixed_blocks
+    cfg = from_reference(dataclasses.asdict(ref_cfg))
+    t = [torch.from_numpy(np.array(a)) for a in (x, n, h, choice, k)]
+    want = encode.emit_blocks(*t, cfg, "vertical")
+
+    def refuse(*args):
+        raise AssertionError("called")
+
+    monkeypatch.setattr(encode, "candidate_z", refuse)
+    monkeypatch.setattr(encode, "assemble_rows", refuse)
+    for g, w in zip(encode.emit_blocks(*t, cfg, "vertical"), want):
+        assert torch.equal(g, w)
+    with pytest.raises(AssertionError, match="called"):
+        encode.emit_blocks(*t, cfg, "vertical", backend="pallas")
