@@ -16,8 +16,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      for DELTA + DOUBLE_DELTA ("K6-xbp") and for an LPC table ("K6-lpc",
      the same tables), K3 in its two, the payload rows from the raw
      samples with every candidate of those tables chosen ("K3") and from
-     zigzag values ("K3-z"), and R (the reconstruction) on every
-     predictor and table, with histories at the int32 extremes;
+     zigzag values ("K3-z"), R (the reconstruction) on every predictor and
+     table, with histories at the int32 extremes, and the decode kernels
+     K4 and K5b on the compact words of their blocks, laid out in a
+     shuffled order between words of no block, a few RICE blocks cut
+     short, and a bad VERTICAL sync entry that must raise;
   3. drives compress -> write_frame -> read_frame -> decompress for the
      adaptive, rice and vertical coders at the bench geometry (8192 blocks
      x 4096 int32 = 128 MiB, resident on the card), each with the launch
@@ -25,13 +28,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      trip bit-exact, every kernel of each path launched (K6-xbp once,
      K6-lpc once per LPC candidate and K6's z form never on the rice path;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
-     paths; R once per coder group in every decode; K3 once per VERTICAL
-     group and its z form never), and the plain torch stages that R and
-     K3 replace never run (the LPC recurrence loop, the region assembly,
-     the winner's residuals in a VERTICAL emission), with the device
-     segments each compress obtained from the allocator (and, for the
-     adaptive path, the stage times of a second compress on the cached
-     segments); then, on the same corpus, the adaptive selection under
+     paths; R once per coder group in every decode, K5b once per RICE
+     group and K4 once per VERTICAL group; K3 once per VERTICAL group and
+     its z form never), and the plain torch stages that R, K3, K4 and K5b
+     replace never run (the LPC recurrence loop, the region assembly, the
+     winner's residuals in a VERTICAL emission, the staging of the
+     decode's rows), with the device segments each compress obtained from
+     the allocator (and, for the adaptive path, the stage times of a
+     second compress on the cached segments); then, on the same corpus,
+     the adaptive selection under
      backend="reduce" (K7 once per candidate on the torch residuals, K1
      and K2 never; equal to the default selection, which is the
      full-size check of the LPC residuals derived in K2), the VERTICAL
@@ -39,6 +44,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      reference's encode_vertical signature; rows equal to the x form's),
      and the adaptive and vertical round trips under backend="pallas" (K9
      and K8 in place of K3; frames byte-identical to the default ones);
+     then K5b and K4 on the coder groups of those frames, read in place
+     as the decode reads them (the main path's kernel times, the adaptive
+     RICE group's 1351 blocks beside the rice path's 8192);
   4. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
      port's frame back to the input;
@@ -140,6 +148,30 @@ def kernel_inputs(B: int, L: int, seed: int):
     return x, z.view(np.int32), hist, n, k
 
 
+def scatter_blocks(flat, wc, seed, gap=3):
+    """The blocks' words (back to back in flat, wc[i] words each) laid out
+    again in a shuffled order, each behind `gap` non-zero words of no
+    block, with `gap` more at the end -> (words, start, count), on flat's
+    device: the layout K4 and K5b are held to their twins on."""
+    import numpy as np
+    import torch
+
+    from dctpu_torch.kernels import ragged
+
+    rng = np.random.default_rng(seed)
+    dev = flat.device
+    wc = wc.to(torch.int64)
+    order = torch.from_numpy(rng.permutation(wc.numel())).to(dev)
+    room = wc[order] + gap
+    start = torch.empty_like(wc)
+    start[order] = torch.cumsum(room, 0) - wc[order]
+    total = int(room.sum()) + gap
+    junk = rng.integers(1, 2**32, size=total, dtype=np.uint64).astype(np.uint32)
+    words = torch.from_numpy(junk.view(np.int32)).to(dev)
+    ragged.copy_segments(words, start, flat, torch.cumsum(wc, 0) - wc, wc)
+    return words, start, wc.clone()
+
+
 def bound(nbytes: float, ops: float):
     """(least ms on the card, what bounds it) for this many bytes moved
     (each input read once, each output written once) and integer ops."""
@@ -181,7 +213,9 @@ def work(key, B, L, n, b, rows_words, preds):
     for the RICE pack (codeword, scan, ORs) and unpack (window, count,
     extract), 4 per sub-block word for K8 (shift, compare, vote, rank) and
     32 per word for K9 (one vote per plane). K3's output is its payload
-    rows, rows_words["K3"] words, whole."""
+    rows, rows_words["K3"] words, whole; K4 and K5b read the count_i words
+    of each block, rows_words["K4"] and ["K5b"] in all, with its start
+    (8 bytes) and count."""
     v = int(n.clamp(0, L).sum())
     K1 = K_MAX + 1
     R = B * -(-L // 128)
@@ -200,9 +234,10 @@ def work(key, B, L, n, b, rows_words, preds):
         "K3-z": (4 * B * L + 4 * B + rows_out, v * 64),
         "R": (8 * B * L + 16 * B + 12 * B + 16 * rows_words["tables"],
               pred_ops(n, L, preds["R"])),
-        "K4": (4 * rows_words["K4"] + 4 * B + 4 * B * L, 3 * 128 * int(b.sum())),
+        "K4": (4 * rows_words["K4"] + 16 * B + 4 * B + 4 * B * L,
+               3 * 128 * int(b.sum())),
         "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
-        "K5b": (4 * rows_words["K5b"] + 8 * B + 4 * B * L, 20 * v),
+        "K5b": (4 * rows_words["K5b"] + 12 * B + 8 * B + 4 * B * L, 20 * v),
         "K6": (4 * B * L + 4 * B + 4 * B * K1, rice),
         "K6-xbp": (4 * B * L + 16 * B + 4 * B + 8 * B * K1,
                    2 * rice + v * DELTAS_OPS),
@@ -225,11 +260,11 @@ RECS = {
            "dctpu/kernels/vemit_pallas.py:116"),
     "K3-z": ("K3 vemit_rows_z (z form)", "dctpu_torch/csrc/vemit.cu",
              "dctpu/kernels/vemit_pallas.py:116"),
-    "K4": ("K4 vdec", "dctpu_torch/csrc/vdec.cu",
+    "K4": ("K4 vdec_words", "dctpu_torch/csrc/vdec.cu",
            "dctpu/kernels/vdec_pallas.py:76"),
     "K5a": ("K5a rice_pack", "dctpu_torch/csrc/pack.cu",
             "dctpu/kernels/attic/pack_pallas.py:72"),
-    "K5b": ("K5b rice_unpack", "dctpu_torch/csrc/unpack.cu",
+    "K5b": ("K5b rice_unpack_words", "dctpu_torch/csrc/unpack.cu",
             "dctpu/kernels/attic/unpack_pallas.py:56"),
     "K6": ("K6 rice_totals", "dctpu_torch/csrc/select.cu",
            "dctpu/kernels/select_pallas.py:72"),
@@ -298,9 +333,17 @@ def check_kernels(dev):
         grouped_bit_transpose32,
         grouped_bit_transpose32_plain,
     )
+    from dctpu_torch.kernels import ragged
     from dctpu_torch.kernels.reconstruct import reconstruct, reconstruct_plain
-    from dctpu_torch.kernels.unpack import rice_unpack, unpack
-    from dctpu_torch.kernels.vdec import decode_vertical, decode_vertical_plain
+    from dctpu_torch.kernels.unpack import (
+        rice_unpack_words,
+        rice_unpack_words_plain,
+    )
+    from dctpu_torch.kernels.vdec import (
+        decode_vertical_words,
+        decode_vertical_words_plain,
+        launch_vdec_words,
+    )
     from dctpu_torch.kernels.vemit import (
         vertical_emit,
         vertical_emit_rows,
@@ -350,7 +393,17 @@ def check_kernels(dev):
             "R": pred_r,
         }
         payload, bit_len = rice_pack_plain(z, k, n, L)
-        rice_rows = torch.nn.functional.pad(payload, (0, 2))
+        # K5b and K4 read their blocks in place from the frame's compact
+        # words, here shuffled between words of no block; three RICE
+        # blocks are cut short (one below its sync table)
+        r_words, r_start, r_count = scatter_blocks(
+            ragged.compact_payload(payload, bit_len, L),
+            ragged.payload_word_counts(bit_len, L), seed=200 + si)
+        r_count[0] -= 5
+        r_count[2] //= 2
+        r_count[5] = 0
+        v_words, v_start, v_count = scatter_blocks(
+            *ragged.compact_vertical(rows, L), seed=300 + si)
         # K8 and K9 take the staged emission's inputs: the sub-block rows
         # (zero past n) with the width rule's b (b = 0 and 32 on two blocks,
         # so that ranks past EXC_CAP are dropped), and their lane-reversed
@@ -374,12 +427,16 @@ def check_kernels(dev):
                    lambda: vertical_emit_rows_plain(x, hist_r, n, choice, cfg)),
             "K3-z": (lambda: vertical_emit_rows_z(z, n, L),
                      lambda: vertical_emit_rows_z_plain(z, n, L)),
-            "K4": (lambda: (decode_vertical(rows, n, L),),
-                   lambda: (decode_vertical_plain(rows, n, L),)),
+            "K4": (lambda: (decode_vertical_words(v_words, v_start, v_count,
+                                                  n, L),),
+                   lambda: (decode_vertical_words_plain(v_words, v_start,
+                                                        v_count, n, L),)),
             "K5a": (lambda: rice_pack(z, k, n, L),
                     lambda: rice_pack_plain(z, k, n, L)),
-            "K5b": (lambda: (rice_unpack(rice_rows, k, n, L),),
-                    lambda: (unpack(rice_rows, k, n, L),)),
+            "K5b": (lambda: (rice_unpack_words(r_words, r_start, r_count, k,
+                                               n, L),),
+                    lambda: (rice_unpack_words_plain(r_words, r_start,
+                                                     r_count, k, n, L),)),
             "K6": (lambda: (rice_totals(z, n, L, K),),
                    lambda: (rice_totals_plain(z, n, L, K),)),
             "K6-xbp": (lambda: (rice_totals_xbp(x, hist, n, L, K),),
@@ -407,6 +464,8 @@ def check_kernels(dev):
             print(f"  {key} {B}x{L}: max_abs_err {err}", flush=True)
             if err:
                 fail(f"{key} differs from its twin at {B}x{L}")
+            if key == "K4":
+                bad_vertical_check(v_words, v_start, v_count, n, L)
             if (B, L) == (BENCH_BLOCKS, BENCH_LEN):
                 r = recs[key]
                 c0 = tables[0]
@@ -416,13 +475,15 @@ def check_kernels(dev):
                 if key == "K6-lpc":
                     kern = lambda: rice_totals_lpc(x, hist, n, c0, L, K)  # noqa: E731
                     plain = lambda: rice_totals_lpc_plain(x, hist, n, c0, L, K)  # noqa: E731
+                if key == "K4":  # the kernel; the wrapper adds a host read
+                    r["wrapper_ms"] = time_ms(kern, 10)
+                    kern = lambda: launch_vdec_words(v_words, v_start, v_count, n, L)  # noqa: E731
                 r["ms"] = time_ms(kern, 10)
                 r["plain_ms"] = time_ms(plain, 3)
-                sync = -(-L // 256) * B
-                words = {  # the staged rows' live words, not their padding
-                    "K4": sync + int(vwords.sum()),
+                words = {  # the live words, not the rows' padding
+                    "K4": int(v_count.sum()),
                     "K5a": int(payload.numel()),
-                    "K5b": sync + int(((bit_len + 31) // 32).sum()),
+                    "K5b": int(r_count.sum()),
                     "K3": int(rows.numel()),
                     "cands": len(cands),
                     "tables": len(tables),
@@ -434,10 +495,68 @@ def check_kernels(dev):
                       f"({r['bound_by']}: {nbytes} B, {ops} ops)", flush=True)
                 if key == "R":
                     recon_scaling(zr, n, tidx, hist_r, coeffs)
-        del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload, rice_rows
+        del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload
+        del r_words, r_start, r_count, v_words, v_start, v_count
         del zs, b_exc, groups, emitted, choice, pred_r, tidx, hist_r, zr, preds
         torch.cuda.empty_cache()
     return recs
+
+
+def group_times(dev, frames, recs) -> None:
+    """K5b and K4 on the coder groups of the 128 MiB frames, each block read
+    in place from its frame's words as the decode reads it: the main
+    path's kernel times (K4 without the wrapper's flag read), each beside
+    the time its bytes take at the card's memory rate (the words read,
+    start, count, k and n, z written)."""
+    import numpy as np
+    import torch
+
+    from dctpu_torch.format import read_frame
+    from dctpu_torch.kernels.unpack import rice_unpack_words
+    from dctpu_torch.kernels.vdec import launch_vdec_words
+
+    for coder in CODERS:
+        frame = read_frame(frames[coder])
+        hb, L = frame.blocks, frame.block_len
+        off = hb.word_offsets(L)
+        words = torch.from_numpy(
+            np.ascontiguousarray(frame.payload_words).view(np.int32)).to(dev)
+        for gid, key in ((0, "K5b"), (1, "K4")):
+            idx = np.nonzero(hb.coder_arr() == gid)[0]
+            if idx.size == 0:
+                continue
+            start, count, n, k = (
+                torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
+                for a in (off[:-1], np.diff(off).astype(np.int32),
+                          hb.n.astype(np.int32), hb.k.astype(np.int32)))
+            if key == "K5b":
+                fn = lambda: rice_unpack_words(words, start, count, k, n, L)  # noqa: E731
+            else:
+                fn = lambda: launch_vdec_words(words, start, count, n, L)  # noqa: E731
+            ms = time_ms(fn, 10)
+            nbytes = 4 * int(count.sum()) + 20 * idx.size + 4 * idx.size * L
+            b_ms = nbytes / PEAK_BYTES_S * 1e3
+            group = f"{coder} {'RICE' if gid == 0 else 'VERTICAL'} group"
+            recs[key].setdefault("ms_by_group", {})[group] = ms
+            print(f"  {key} on the {group}, {idx.size}x{L}: {ms:.4f} ms, bytes "
+                  f"bound {b_ms:.4f} ms ({nbytes} B, {int(count.sum())} words)",
+                  flush=True)
+
+
+def bad_vertical_check(words, start, count, n, L) -> None:
+    """K4 on the card raises the twin's ValueError for a block whose sync
+    entry has a width above 32."""
+    from dctpu_torch.kernels.vdec import decode_vertical_words
+
+    bad = words.clone()
+    bad[start[3]] = (bad[start[3]] & -(1 << 16)) | 40  # sub 0: b = 40
+    try:
+        decode_vertical_words(bad, start, count, n, L)
+    except ValueError as e:
+        if "sync table does not match" not in str(e):
+            fail(f"K4 raised another ValueError on a bad sync entry: {e}")
+    else:
+        fail(f"K4 decoded a block with a bad sync entry at {L}")
 
 
 def counters():
@@ -462,9 +581,9 @@ def counters():
         "K2-lpc": (select_bp.adaptive_totals_lpc,),
         "K3": (vemit.vertical_emit_rows,),
         "K3-z": (vemit.vertical_emit_rows_z,),
-        "K4": (vdec.decode_vertical,),
+        "K4": (vdec.decode_vertical_words,),
         "K5a": (pack.rice_pack,),
-        "K5b": (unpack.rice_unpack,),
+        "K5b": (unpack.rice_unpack_words,),
         "K6": (rice_totals.rice_totals, rice_totals.rice_totals_xbp,
                rice_totals.rice_totals_lpc),
         "K6-xbp": (rice_totals.rice_totals_xbp,),
@@ -506,16 +625,19 @@ NEVER = {
 
 @contextlib.contextmanager
 def plain_calls():
-    """Counts the calls of the plain torch stages that R and K3 replace on
-    the default paths: the LPC recurrence loop, the region assembly, and
-    the winner's residuals of an emission (a RICE group's, and a VERTICAL
-    group's on the staged backends)."""
+    """Counts the calls of the plain torch stages that R, K3, K4 and K5b
+    replace on the default paths: the LPC recurrence loop, the region
+    assembly, the winner's residuals of an emission (a RICE group's, and a
+    VERTICAL group's on the staged backends), and the staging of the
+    decode's VERTICAL and RICE rows."""
     from dctpu_torch.codec import encode, predict
-    from dctpu_torch.kernels import vemit
+    from dctpu_torch.kernels import ragged, vemit
 
-    counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0}
+    counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0,
+              "stage_vertical": 0, "pad_payload": 0}
     patched = [(predict, "reconstruct_lpc"), (encode, "assemble_rows"),
-               (vemit, "assemble_rows"), (predict, "chosen_residuals")]
+               (vemit, "assemble_rows"), (predict, "chosen_residuals"),
+               (ragged, "stage_vertical"), (ragged, "pad_payload")]
     saved = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -619,12 +741,19 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     want_plain = {"reconstruct_lpc": 0,
                   "assemble_rows": int(staged and hist[1] > 0),
                   "chosen_residuals": int(hist[0] > 0)
-                  + int(staged and hist[1] > 0)}
+                  + int(staged and hist[1] > 0),
+                  "stage_vertical": 0, "pad_payload": 0}
     if (launches["R"], launches["K3"], plain) != (
             groups, 0 if staged else int(hist[1] > 0), want_plain):
         fail(f"R launched {launches['R']} times (want {groups}, one per coder "
              f"group), K3 {launches['K3']}, plain stages {plain} (want "
              f"{want_plain})")
+    if (launches["K5b"], launches["K4"]) != (int(hist[0] > 0), int(hist[1] > 0)):
+        fail(f"K5b launched {launches['K5b']} times (want one per RICE group), "
+             f"K4 {launches['K4']} (want one per VERTICAL group)")
+    stages = [k for k in dec_ms if k.startswith("stage_")]
+    if stages:
+        fail(f"the {name} decode still stages rows: {stages}")
     n_lpc = len(cfg.candidates()) - 2
     if cfg.coder == "rice":
         z_form = launches["K6"] - launches["K6-xbp"] - launches["K6-lpc"]
@@ -866,6 +995,8 @@ def main() -> int:
     for key, r in recs.items():
         r["launches"] = by_path[home.get(key, "adaptive")][key]
         r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
+    print("decode kernels on the frames' coder groups:", flush=True)
+    group_times(dev, frames, recs)
     oracle_check(streams, ids, cads, frames)
     cli_check()
 

@@ -278,8 +278,8 @@ def _decode_blocks_array(
 ) -> np.ndarray:
     """Frame -> [B, L] decoded blocks (zeros past n), grouped by coder.
 
-    The compact disk words cross to the device once; each coder group is
-    staged there (a segment copy into its row layout) and decoded."""
+    The compact disk words cross to the device once; each coder group's
+    decode kernel reads its blocks' words there in place."""
     _check_block_table(frame)
     stage = _Stages(stage_ms, device)
     L = frame.block_len
@@ -303,7 +303,7 @@ def _decode_blocks_array(
                 ("predictor", hb.predictor.astype(np.int32)),
                 ("table_idx", hb.table_idx.astype(np.int32)),
                 ("history", hb.history.astype(np.int32)),
-                ("start", off_h[:-1]), ("count", np.diff(off_h)),
+                ("start", off_h[:-1]), ("count", np.diff(off_h).astype(np.int32)),
             )
         }
     xs = torch.zeros((B, L), dtype=torch.int32, device=device)
@@ -313,15 +313,8 @@ def _decode_blocks_array(
             continue
         idx = torch.from_numpy(idx_h).to(device)
         g = {name: t[idx] for name, t in heads.items()}
-        with stage(f"stage_{gname}"):
-            if gname == "vertical":
-                rows = ragged.stage_vertical(words, g["start"], g["count"], L)
-            else:
-                rows = ragged.pad_payload(
-                    words, g["start"], g["count"], padded_words(L) + 2
-                )
         with stage(f"decode_{gname}"):
-            z = decode_z(rows, g["k"], g["n"], L, gname)
+            z = decode_z(words, g["start"], g["count"], g["k"], g["n"], L, gname)
         with stage("reconstruct"):
             xs[idx] = reconstruct(
                 z, g["n"], g["predictor"], g["table_idx"], g["history"], coeffs

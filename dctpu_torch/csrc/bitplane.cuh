@@ -1,6 +1,7 @@
-// Shared device helpers of the VERTICAL-coder kernels (select.cu, vemit.cu,
-// vdec.cu, exc.cu, transpose.cu): one 128-sample sub-block row is four
-// warps, lane c of warp w holding sample 32w + c (docs/FORMAT.md §2.2).
+// Shared device helpers of the kernels (select.cu, vemit.cu, vdec.cu,
+// exc.cu, transpose.cu, unpack.cu, recon.cu): one 128-sample sub-block row
+// is four warps, lane c of warp w holding sample 32w + c (docs/FORMAT.md
+// §2.2); and the 4-byte cp.async copy into shared memory.
 //
 // The TPU kernels built the bit planes with a 32x32 butterfly transpose plus
 // a bit reversal (dctpu/kernels/select_bp.py _bt32_rows, vemit_pallas.py
@@ -20,6 +21,17 @@ constexpr int kExcCap = 16;         // EXC_CAP, normative (FORMAT §2.2)
 constexpr int kRegionWords = 148;   // 128 plane + 4 position + 16 value words
 constexpr int kRegionPad = 192;     // staged row stride of one sub-block
 constexpr unsigned kFull = 0xffffffffu;
+
+// One 4-byte cp.async copy from device memory into shared memory; the
+// caller waits for it (cp.async.wait_all, or commit_group and wait_group),
+// then a barrier makes it visible to the other threads.
+template <class T>
+__device__ __forceinline__ void copy_async4(T* smem, const T* src) {
+  static_assert(sizeof(T) == 4, "4-byte copies");
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
+               :: "r"(dst), "l"(src));
+}
 
 // Bit length of a u32 (0 for 0).
 __device__ __forceinline__ int bit_length(uint32_t z) {

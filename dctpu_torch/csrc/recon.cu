@@ -19,6 +19,7 @@
 // back in place; the warp then stores the piece coalesced. A block writes
 // zeros from n on; samples past n never feed earlier ones, so this equals
 // the reference's reconstruct-then-mask.
+#include "bitplane.cuh"
 #include "residual.cuh"
 
 namespace dct {
@@ -26,13 +27,6 @@ namespace dct {
 constexpr int kRows = 32;    // blocks per warp, one per lane
 constexpr int kChunk = 128;  // samples of each block per piece
 constexpr int kStride = kChunk + 1;  // odd: lane b's walk is conflict-free
-
-__device__ __forceinline__ void copy_async4(int32_t* smem,
-                                            const int32_t* src) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n"
-               :: "r"(dst), "l"(src));
-}
 
 // Starts the copies of the piece at sample base of the warp's blocks into
 // buf, as one cp.async group. Samples past block_len and blocks past rows

@@ -1,95 +1,229 @@
-// K4: VERTICAL decode of one staged 128-sample sub-block row.
+// K4: VERTICAL decode, the frame's compact words -> zigzag values
+// (FORMAT §2.2).
 //
-// Replaces dctpu/kernels/vdec_pallas.py _vdec_kernel. Input rows are the
-// staged layout of decode_vertical_mega: per block the sync words, then one
-// kRegionPad-word slot per sub-block holding its live disk words (b plane
-// groups of pw words, ceil(n_exc/4) position words, the exception value
-// words) and zeros after them. Each row un-transposes its planes below b,
-// reads the exception values raw or un-planes them (FORMAT §2.2), and ORs
-// v_j << b into the listed positions. Unlike the TPU kernel it also takes
-// block_len % 128 != 0 (a short last sub with pw < 4 plane words).
+// Replaces dctpu/kernels/vdec_pallas.py _vdec_kernel. It reads each block's
+// payload where it lies in the frame's concatenated disk words,
+// words[start_i : start_i + count_i]: the SW sync words, then each
+// sub-block's live words (b plane groups of pw words, ceil(n_exc/4)
+// position words, the exception value words) back to back. No staged
+// 192-word slot is built: a sub-block's word offset is the exclusive scan
+// of the live word counts its sync entries give (kernels/vertical.py
+// region_word_counts). Each row un-transposes its planes below b, reads the
+// exception values raw or un-planes them, and ORs v_j << b into the listed
+// positions. Unlike the TPU kernel it also takes block_len % 128 != 0 (a
+// short last sub with pw < 4 plane words).
 //
-// What bounds it on the card: it reads at most 148 words and writes 128
-// per row; the work is b shared-memory reads per sample. Bound by latency
-// and memory traffic. Design: one thread block of 128 threads per row; the
-// region is copied once into shared memory, every lane of a warp reads the
-// same plane word (a broadcast), and the <= 16 exception lanes patch the
-// row in shared memory before one coalesced store.
+// A block whose sync table has a width above 32, more than 16 exceptions in
+// an entry, or word counts that do not add up to count_i is flagged in
+// bad[i] and decodes nothing; no block reads past its count_i words.
+//
+// What bounds it on the card: it reads at most 148 words and writes 128 per
+// 128-sample row, and un-transposes b planes; the bytes bound it, but a row
+// that waits for its words in device memory waits longer than it takes to
+// decode, and the un-transpose is most of its instructions. Design: a thread
+// block per codec block and a warp per row, each warp walking rows warp,
+// warp + 4, ...: no block barrier at all. Every warp scans the sync entries
+// 32 at a time with shuffles (the entries of a block fit in one or two
+// cache lines), so it knows each of its rows' word offsets. A row's live
+// words are read coalesced by lane into the warp's 16-byte-aligned shared
+// slot; the next row's words are loaded into registers while the current
+// one decodes. Every lane reads the same plane word (a broadcast, all four
+// of a full row's in one 16-byte read) and shifts its bit in from the top
+// plane down, one shift and one OR per plane word; the <= 16 exception
+// lanes patch the warp's row in shared memory (their positions are
+// distinct in a valid frame), and the row leaves in one coalesced store.
 #include "bitplane.cuh"
 
 namespace dct {
 
-__global__ void __launch_bounds__(kSub)
-vdec_kernel(const int32_t* __restrict__ payload, const int32_t* __restrict__ n,
-            int32_t* __restrict__ z, int block_len, int subs, int row_words) {
-  __shared__ uint32_t span[kRegionWords];
-  __shared__ uint32_t zs[kSub];
+constexpr int kVdecWarps = 4;        // rows in flight per codec block
+constexpr int kRowLoads = (kRegionWords + 31) / 32;  // 5 loads per lane
 
-  const size_t r = blockIdx.x;
-  const int blk = static_cast<int>(r / subs);
-  const int s = static_cast<int>(r % subs);
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const uint32_t* row =
-      reinterpret_cast<const uint32_t*>(payload) +
-      static_cast<size_t>(blk) * row_words;
+struct Entry {
+  int b;      // plane count
+  int n_exc;  // exceptions
+  int e;      // bit length of the largest exception value (0 if none)
+  int words;  // live words of the row
+};
+
+__device__ __forceinline__ Entry parse_entry(uint32_t entry, int pw) {
+  Entry r;
+  r.b = entry & 63;
+  r.n_exc = (entry >> 6) & 31;
+  r.e = r.n_exc > 0 ? ((entry >> 11) & 31) + 1 : 0;
+  const int vw = r.n_exc > 0 ? min(r.n_exc, (r.e + 1) >> 1) : 0;
+  r.words = pw * r.b + ((r.n_exc + 3) >> 2) + vw;
+  return r;
+}
+
+// v << 1 with bit `lane` of plane word q shifted in at the bottom
+__device__ __forceinline__ uint32_t shift_in(uint32_t v, uint32_t q, int lane) {
+  return (v << 1) | ((q >> lane) & 1u);
+}
+
+__global__ void __launch_bounds__(32 * kVdecWarps)
+vdec_words_kernel(const uint32_t* __restrict__ words,
+                  const int64_t* __restrict__ start,
+                  const int32_t* __restrict__ count,
+                  const int32_t* __restrict__ n, int32_t* __restrict__ z,
+                  int32_t* __restrict__ bad, int block_len) {
+  __shared__ __align__(16) uint32_t slot_sh[kVdecWarps][kRegionWords];
+  __shared__ uint32_t row_sh[kVdecWarps][kSub];
+
+  const int blk = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const uint32_t* src = words + start[blk];
+  const int cnt = count[blk];
+  const int subs = (block_len + kSub - 1) / kSub;
   const int sync_words = (subs + 1) >> 1;
+  uint32_t* slot = slot_sh[warp];
+  uint32_t* row = row_sh[warp];
 
-  const uint32_t ew = row[s >> 1];
-  const int entry = static_cast<int>((s & 1) ? ew >> 16 : ew & 0xFFFFu);
-  // clamps only keep malformed entries inside the region; valid entries
-  // have b <= 32 and n_exc <= 16
-  const int b = min(entry & 63, 32);
-  const int n_field = (entry >> 6) & 31;
-  const int n_exc = min(n_field, kExcCap);
-  const int e = n_field > 0 ? ((entry >> 11) & 31) + 1 : 0;
+  // sync entry of sub s, zero where the block's words end
+  auto entry_of = [&](int s) -> uint32_t {
+    const int j = s >> 1;
+    const uint32_t w = j < cnt ? src[j] : 0u;
+    return (w >> (16 * (s & 1))) & 0xFFFFu;
+  };
 
-  const uint32_t* region = row + sync_words + static_cast<size_t>(s) * kRegionPad;
-  for (int t = tid; t < kRegionWords; t += kSub) span[t] = region[t];
-  __syncthreads();
-
-  const int pw = plane_words(s, block_len);
-  uint32_t v = 0;
-  if (warp < pw) {
-    for (int p = 0; p < b; ++p) v |= ((span[p * pw + warp] >> lane) & 1u) << p;
+  // pass 1 (every warp): is the table well formed, and does it describe
+  // exactly count_i words?
+  int total = 0;
+  bool ok = true;
+  for (int s = lane; s < subs; s += 32) {
+    const Entry r = parse_entry(entry_of(s), plane_words(s, block_len));
+    ok = ok && r.b <= 32 && r.n_exc <= kExcCap;
+    total += r.words;
   }
-  zs[tid] = v;
-  __syncthreads();
+  total = __reduce_add_sync(kFull, total);
+  const bool is_bad = !__all_sync(kFull, ok) || sync_words + total != cnt;
+  if (threadIdx.x == 0) bad[blk] = is_bad;
+  if (is_bad || warp >= subs) return;
 
-  if (tid < n_exc && b < 32) {
-    const int t0 = pw * b;
-    const int posw = (n_exc + 3) >> 2;
-    const uint32_t pos = (span[t0 + (tid >> 2)] >> (8 * (tid & 3))) & 0xFFu;
-    const uint32_t* vw = span + t0 + posw;
-    uint32_t val = 0;
-    if (n_exc <= (e + 1) / 2) {
-      val = vw[tid];  // raw layout
-    } else {          // bit-planed: plane p is bits [16(p%2), +16) of word p/2
-      for (int p = 0; p < e; ++p)
-        val |= ((vw[p >> 1] >> (16 * (p & 1) + tid)) & 1u) << p;
+  // pass 2: this warp's rows s = warp, warp + kVdecWarps, ...; the lanes
+  // hold the entry and the word offset of sub 32 * chunk + lane
+  int chunk = -1, carry = 0, chunk_total = 0;
+  uint32_t my_entry = 0;
+  int my_off = 0;
+  auto enter_chunk = [&](int c) {  // warp-uniform; chunks advance by one
+    carry += chunk_total;
+    chunk = c;
+    const int s = 32 * c + lane;
+    my_entry = s < subs ? entry_of(s) : 0u;
+    const int w = s < subs ? parse_entry(my_entry, plane_words(s, block_len)).words : 0;
+    int incl = w;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_up_sync(kFull, incl, d);
+      if (lane >= d) incl += o;
     }
-    if (pos < kSub) atomicOr(&zs[pos], val << b);
-  }
-  __syncthreads();
+    my_off = carry + incl - w;
+    chunk_total = __shfl_sync(kFull, incl, 31);
+  };
+  // a row's entry and the offset of its words after the sync table
+  auto row_of = [&](int s, Entry& r, int& off) {
+    if ((s >> 5) != chunk) enter_chunk(s >> 5);
+    r = parse_entry(__shfl_sync(kFull, my_entry, s & 31), plane_words(s, block_len));
+    off = __shfl_sync(kFull, my_off, s & 31);
+  };
+  // a row's live words into registers, lane-coalesced, zeros after them
+  uint32_t pre[kRowLoads];
+  auto fetch = [&](const Entry& r, int off) {
+    const uint32_t* p = src + sync_words + off;
+#pragma unroll
+    for (int i = 0; i < kRowLoads; ++i) {
+      const int t = lane + 32 * i;
+      pre[i] = t < r.words ? __ldg(p + t) : 0u;
+    }
+  };
 
-  const int i = s * kSub + tid;
-  if (i < block_len)
-    z[static_cast<size_t>(blk) * block_len + i] =
-        i < n[blk] ? static_cast<int32_t>(zs[tid]) : 0;
+  int s = warp;
+  Entry cur;
+  int off;
+  row_of(s, cur, off);
+  fetch(cur, off);
+  const int nb = n[blk];
+  int32_t* zrow = z + static_cast<size_t>(blk) * block_len;
+  while (true) {
+#pragma unroll
+    for (int i = 0; i < kRowLoads; ++i) {
+      const int t = lane + 32 * i;
+      if (t < kRegionWords) slot[t] = pre[i];
+    }
+    const int next = s + kVdecWarps;
+    Entry nxt;
+    if (next < subs) {  // the next row's words load during this row's decode
+      row_of(next, nxt, off);
+      fetch(nxt, off);
+    }
+    __syncwarp();
+
+    const int pw = plane_words(s, block_len);
+    const int b = cur.b;
+    uint32_t v[kWarps] = {0, 0, 0, 0};
+    if (pw == kWarps) {  // a full row: plane p's four words in one read
+      for (int p = b - 1; p >= 0; --p) {
+        const uint4 q = reinterpret_cast<const uint4*>(slot)[p];
+        v[0] = shift_in(v[0], q.x, lane);
+        v[1] = shift_in(v[1], q.y, lane);
+        v[2] = shift_in(v[2], q.z, lane);
+        v[3] = shift_in(v[3], q.w, lane);
+      }
+    } else {
+      for (int p = b - 1; p >= 0; --p) {
+#pragma unroll
+        for (int w = 0; w < kWarps; ++w)
+          if (w < pw) v[w] = shift_in(v[w], slot[p * pw + w], lane);
+      }
+    }
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) row[32 * w + lane] = v[w];
+    __syncwarp();
+
+    if (lane < cur.n_exc && b < 32) {
+      const int t0 = pw * b;
+      const int posw = (cur.n_exc + 3) >> 2;
+      const uint32_t pos = (slot[t0 + (lane >> 2)] >> (8 * (lane & 3))) & 0xFFu;
+      const uint32_t* vw = slot + t0 + posw;
+      uint32_t val = 0;
+      if (cur.n_exc <= (cur.e + 1) / 2) {
+        val = vw[lane];  // raw layout
+      } else {           // bit-planed: plane p is bits [16(p%2), +16) of word p/2
+        for (int p = 0; p < cur.e; ++p)
+          val |= ((vw[p >> 1] >> (16 * (p & 1) + lane)) & 1u) << p;
+      }
+      if (pos < kSub) row[pos] |= val << b;
+    }
+    __syncwarp();
+
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+      const int i = s * kSub + 32 * w + lane;
+      if (i < block_len) zrow[i] = i < nb ? static_cast<int32_t>(row[32 * w + lane]) : 0;
+    }
+    if (next >= subs) break;
+    __syncwarp();  // the slot and the row are rewritten next
+    s = next;
+    cur = nxt;
+  }
 }
 
 }  // namespace dct
 
-// payload [B, row_words] staged rows (int32 bit patterns), n [B]
-// -> z [B, L] zigzag values (zero past n).
-extern "C" int dct_vdec(const void* payload, const void* n, void* z,
-                        int num_blocks, int block_len, int row_words,
-                        void* stream) {
-  const int subs = (block_len + dct::kSub - 1) / dct::kSub;
-  const unsigned rows = static_cast<unsigned>(num_blocks) * subs;
-  dct::vdec_kernel<<<rows, dct::kSub, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(payload), static_cast<const int32_t*>(n),
-      static_cast<int32_t*>(z), block_len, subs, row_words);
+// words [W] the frame's payload words (int32 bit patterns), start [B] int64
+// and count [B] int32 each block's words, n [B] -> z [B, L] zigzag values
+// (zero past n) and bad [B] (1 where the sync table does not describe the
+// block's words; such a block's z is not written).
+extern "C" int dct_vdec_words(const void* words, const void* start,
+                              const void* count, const void* n, void* z,
+                              void* bad, int num_blocks, int block_len,
+                              void* stream) {
+  dct::vdec_words_kernel<<<static_cast<unsigned>(num_blocks),
+                           32 * dct::kVdecWarps, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(words), static_cast<const int64_t*>(start),
+      static_cast<const int32_t*>(count), static_cast<const int32_t*>(n),
+      static_cast<int32_t*>(z), static_cast<int32_t*>(bad), block_len);
   return static_cast<int>(cudaGetLastError());
 }

@@ -45,12 +45,12 @@ SIGNATURES = {
     "dct_select_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dct_vemit_rows": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
     "dct_vemit_rows_z": (_P, _P, _P, _P, _I, _I, _P),
-    "dct_vdec": (_P, _P, _P, _I, _I, _I, _P),
+    "dct_vdec_words": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dct_rice_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
-    "dct_rice_unpack": (_P, _P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_unpack_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),
     "dct_exc_extract": (_P, _P, _P, _P, _I, _P),
     "dct_bit_transpose": (_P, _P, _I, _P),
@@ -131,6 +131,18 @@ def check_tensors(name: str, *tensors) -> None:
                 f"{name}: expects contiguous int32 tensors on one device, got "
                 f"{t.dtype} on {t.device}"
             )
+
+
+def block_args(name: str, words, start, *per_block):
+    """The arguments of a kernel that reads blocks in place from a frame's
+    words: start as contiguous int64 (a word offset may pass 2**31), each
+    other per-block tensor as contiguous int32, all on words' device."""
+    start = start.to(torch.int64).contiguous()
+    rest = [t.to(torch.int32).contiguous() for t in per_block]
+    if start.device != words.device:
+        raise ValueError(f"{name}: start on {start.device}, words on {words.device}")
+    check_tensors(name, words, *rest)
+    return (start, *rest)
 
 
 def stream_of(t) -> int:

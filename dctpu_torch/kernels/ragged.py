@@ -22,6 +22,8 @@ from dctpu_torch.kernels.vertical import (
     region_word_counts,
 )
 
+BAD_VERTICAL_TABLE = "VERTICAL sync table does not match the block's words"
+
 
 def segment_index(start: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
     """Flat indices of the segments [start_i, start_i + length_i), in order."""
@@ -96,7 +98,9 @@ def stage_vertical(
 
     Raises ValueError when a block's sync entries do not describe exactly
     its count_i words (a width above 32 or more than EXC_CAP exceptions
-    included): those words would land outside their slots."""
+    included): those words would land outside their slots. Sync words at
+    or past count_i read as 0, so no block's words are read past its
+    count."""
     B = start.numel()
     S = subs_per_block(block_len)
     SW = sync_words(block_len)
@@ -106,12 +110,15 @@ def stage_vertical(
     out = torch.zeros((B, W), dtype=words.dtype, device=dev)
     if B == 0:
         return out
-    out[:, :SW] = words[start[:, None] + torch.arange(SW, device=dev)]
+    j = torch.arange(SW, device=dev)
+    inside = j < count.to(torch.int64)[:, None]
+    idx = torch.where(inside, start[:, None] + j, 0)
+    out[:, :SW] = torch.where(inside, words[idx], 0)
     b, n_exc, _, vw = parse_sync(out[:, :SW], S)
     wc_sub = region_word_counts(b, n_exc, vw, block_len)  # [B, S]
     bad = (b > 32) | (n_exc > EXC_CAP)
     if bool(bad.any()) or bool((SW + wc_sub.sum(1) != count).any()):
-        raise ValueError("VERTICAL sync table does not match the block's words")
+        raise ValueError(BAD_VERTICAL_TABLE)
     src = start[:, None] + SW + torch.cumsum(wc_sub, 1) - wc_sub
     dst = (
         torch.arange(B, device=dev)[:, None] * W + SW

@@ -1,20 +1,23 @@
-"""K5b: RICE bit unpacker, staged u32 payload rows -> zigzag values.
+"""K5b: RICE bit unpacker, the frame's compact words -> zigzag values.
 
 The counterpart of ``dctpu/kernels/attic/unpack_pallas.py``
-(``unpack_pallas``). Its rows are the port's RICE staging,
-``ragged.pad_payload(..., padded_words(L) + 2)``: the TPU kernel's
-``stage_rice_scan`` layout was a Mosaic staging choice and is not carried
-over. The CUDA kernel is in ``dctpu_torch/csrc/unpack.cu``.
+(``unpack_pallas``). The CUDA kernel (``dctpu_torch/csrc/unpack.cu``)
+reads each block's words where they lie in the frame's payload,
+``words[start_i : start_i + count_i]``; the TPU kernel's
+``stage_rice_scan`` rows were a Mosaic staging choice and are not carried
+over.
 
-The plain twin :func:`unpack` is the ``dctpu/kernels/unpack_xla.py``
-formulation. The sync table gives every 128-sample sub-block its starting
-bit offset, so the decode runs 128 steps with all B*S sub-blocks active
-per step: each step reads a 64-bit window at every sub-block's bit
-position, counts the unary prefix, and extracts one codeword.
+The plain row twin :func:`unpack` is the ``dctpu/kernels/unpack_xla.py``
+formulation on zero-padded rows. The sync table gives every 128-sample
+sub-block its starting bit offset, so the decode runs 128 steps with all
+B*S sub-blocks active per step: each step reads a 64-bit window at every
+sub-block's bit position, counts the unary prefix, and extracts one
+codeword. :func:`rice_unpack_words_plain` stages the rows with
+``ragged.pad_payload`` and runs it.
 
-``rice_unpack`` runs the twin for tensors on the CPU and launches the
-kernel for tensors on a CUDA device; ``rice_unpack.launches`` counts the
-kernel launches.
+``rice_unpack_words`` runs that twin for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; ``rice_unpack_words.launches``
+counts the kernel launches.
 """
 
 from __future__ import annotations
@@ -30,7 +33,7 @@ from dctpu_torch.constants import (
     subs_per_block,
     sync_words,
 )
-from dctpu_torch.kernels import _build
+from dctpu_torch.kernels import _build, ragged
 from dctpu_torch.kernels.pack import padded_words
 
 
@@ -95,35 +98,55 @@ def unpack(
     return to_i32(out.reshape(B, S * T)[:, :L])
 
 
-def rice_unpack(
-    payload: torch.Tensor,  # [B, padded_words(L) + 2] int32 bit patterns
-    k: torch.Tensor,        # [B] Rice k, in [0, 30]
-    n: torch.Tensor,        # [B] valid samples
+def row_words(block_len: int) -> int:
+    """Width of the twin's staged rows: the worst-case payload, then 2 zero
+    words for the last codeword's 64-bit window."""
+    return padded_words(block_len) + 2
+
+
+def rice_unpack_words_plain(
+    words: torch.Tensor, start: torch.Tensor, count: torch.Tensor,
+    k: torch.Tensor, n: torch.Tensor, block_len: int,
+) -> torch.Tensor:
+    """Plain twin of K5b: each block's words staged into a zero-padded row
+    (a count past the row's width is cut to it), then :func:`unpack`."""
+    W = row_words(block_len)
+    count = count.to(torch.int64).clamp(max=W)
+    return unpack(ragged.pad_payload(words, start, count, W), k, n, block_len)
+
+
+def rice_unpack_words(
+    words: torch.Tensor,  # [W] int32 bit patterns: the frame's payload words
+    start: torch.Tensor,  # [B] first word of each block
+    count: torch.Tensor,  # [B] words of each block, start + count <= W
+    k: torch.Tensor,      # [B] Rice k, in [0, 30]
+    n: torch.Tensor,      # [B] valid samples
     block_len: int,
 ) -> torch.Tensor:
     """K5b: z [B, block_len] zigzag values as int32 bit patterns (zeros
-    past n) -- the contract of :func:`unpack`."""
-    if payload.device.type == "cpu":
-        return unpack(payload, k, n, block_len)
-    if payload.device.type != "cuda":
-        raise ValueError(f"rice_unpack: unsupported device {payload.device}")
-    k = k.to(torch.int32).contiguous()
-    n = n.to(torch.int32).contiguous()
-    _build.check_tensors("rice_unpack", payload, k, n)
-    B, W = payload.shape
-    if W != padded_words(block_len) + 2 or k.shape != (B,) or n.shape != (B,):
+    past n) -- the contract of :func:`rice_unpack_words_plain`."""
+    if words.device.type == "cpu":
+        return rice_unpack_words_plain(words, start, count, k, n, block_len)
+    if words.device.type != "cuda":
+        raise ValueError(f"rice_unpack_words: unsupported device {words.device}")
+    start, count, k, n = _build.block_args(
+        "rice_unpack_words", words, start, count, k, n
+    )
+    B = start.numel()
+    if words.dim() != 1 or any(t.shape != (B,) for t in (count, k, n)):
         raise ValueError(
-            "rice_unpack: expects payload [B, padded_words(L) + 2], k [B], n [B]"
+            "rice_unpack_words: expects words [W], start, count, k and n [B]"
         )
-    z = torch.empty((B, block_len), dtype=torch.int32, device=payload.device)
+    z = torch.empty((B, block_len), dtype=torch.int32, device=words.device)
     if B:
-        err = _build.library().dct_rice_unpack(
-            payload.data_ptr(), k.data_ptr(), n.data_ptr(), z.data_ptr(), B,
-            block_len, W, _build.stream_of(payload),
+        err = _build.library().dct_rice_unpack_words(
+            words.data_ptr(), start.data_ptr(), count.data_ptr(), k.data_ptr(),
+            n.data_ptr(), z.data_ptr(), B, block_len, row_words(block_len),
+            _build.stream_of(words),
         )
-        _build.check(err, "dct_rice_unpack")
-        rice_unpack.launches += 1
+        _build.check(err, "dct_rice_unpack_words")
+        rice_unpack_words.launches += 1
     return z
 
 
-rice_unpack.launches = 0
+rice_unpack_words.launches = 0

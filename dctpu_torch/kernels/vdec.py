@@ -1,16 +1,23 @@
-"""K4: VERTICAL decode of staged payload rows.
+"""K4: VERTICAL decode of the frame's compact words.
 
-The counterpart of ``dctpu/kernels/vdec_pallas.py`` (``decode_vertical_mega``)
-with its staged-row contract: rows ``[sync words | one REGION_PAD slot per
-sub-block]``, each slot holding the sub's live disk words then zeros
-(``kernels/vertical.py``). It un-transposes the planes below b, reads the
-exception values raw or un-planes them, and patches the <= 16 positions.
-Unlike the TPU kernel it also covers ``block_len % 128 != 0``. The CUDA
-kernel is in ``dctpu_torch/csrc/vdec.cu``.
+The counterpart of ``dctpu/kernels/vdec_pallas.py`` (``decode_vertical_mega``).
+The CUDA kernel (``dctpu_torch/csrc/vdec.cu``) reads each block's words
+where they lie in the frame's payload, ``words[start_i : start_i +
+count_i]``, and finds each sub-block's words by a scan of the live word
+counts its sync entries give. It un-transposes the planes below b, reads
+the exception values raw or un-planes them, and patches the <= 16
+positions. Unlike the TPU kernel it also covers ``block_len % 128 != 0``.
 
-``decode_vertical`` runs the plain torch twin for tensors on the CPU and
+The plain row twin :func:`decode_vertical_plain` takes the staged-row
+contract of ``decode_vertical_mega``: rows ``[sync words | one REGION_PAD
+slot per sub-block]``, each slot holding the sub's live disk words then
+zeros (``kernels/vertical.py``). :func:`decode_vertical_words_plain` stages
+the rows with ``ragged.stage_vertical`` and runs it.
+
+``decode_vertical_words`` runs that twin for tensors on the CPU and
 launches the kernel for tensors on a CUDA device;
-``decode_vertical.launches`` counts the kernel launches.
+``decode_vertical_words.launches`` counts the kernel launches. Both raise
+ValueError for a block whose sync table does not describe its words.
 """
 
 from __future__ import annotations
@@ -24,12 +31,11 @@ from dctpu_torch.constants import (
     subs_per_block,
     sync_words,
 )
-from dctpu_torch.kernels import _build
+from dctpu_torch.kernels import _build, ragged
 from dctpu_torch.kernels.vertical import (
     POS_REGION,
     REGION_PAD,
     bit_transpose32,
-    padded_words_vertical,
     parse_sync,
     plane_word_counts,
 )
@@ -92,31 +98,63 @@ def decode_vertical_plain(
     return to_i32(torch.where(valid, z, 0))
 
 
-def decode_vertical(
-    payload: torch.Tensor, n: torch.Tensor, block_len: int
+def decode_vertical_words_plain(
+    words: torch.Tensor, start: torch.Tensor, count: torch.Tensor,
+    n: torch.Tensor, block_len: int,
 ) -> torch.Tensor:
-    """K4: staged rows [B, SW + S*REGION_PAD] int32 bit patterns, n [B] ->
-    z [B, block_len] int32 bit patterns (zeros past n)."""
-    if payload.device.type == "cpu":
-        return decode_vertical_plain(payload, n, block_len)
-    if payload.device.type != "cuda":
-        raise ValueError(f"decode_vertical: unsupported device {payload.device}")
-    n = n.to(torch.int32).contiguous()
-    B, W = payload.shape
-    _build.check_tensors("decode_vertical", payload, n)
-    if W != padded_words_vertical(block_len) or n.shape != (B,):
+    """Plain twin of K4: the blocks staged into rows, then
+    :func:`decode_vertical_plain`."""
+    rows = ragged.stage_vertical(words, start, count, block_len)
+    return decode_vertical_plain(rows, n, block_len)
+
+
+def launch_vdec_words(
+    words: torch.Tensor, start: torch.Tensor, count: torch.Tensor,
+    n: torch.Tensor, block_len: int,
+):
+    """K4's launch on CUDA tensors -> (z, bad): bad [B] int32 is 1 where a
+    block's sync table does not describe its words, whose z is then not
+    written. :func:`decode_vertical_words` reads the flags."""
+    if words.device.type != "cuda":
         raise ValueError(
-            "decode_vertical: expects payload [B, SW + S*REGION_PAD], n [B]"
+            f"decode_vertical_words: unsupported device {words.device}"
         )
-    z = torch.empty((B, block_len), dtype=torch.int32, device=payload.device)
+    start, count, n = _build.block_args(
+        "decode_vertical_words", words, start, count, n
+    )
+    B = start.numel()
+    if words.dim() != 1 or count.shape != (B,) or n.shape != (B,):
+        raise ValueError(
+            "decode_vertical_words: expects words [W], start, count and n [B]"
+        )
+    z = torch.empty((B, block_len), dtype=torch.int32, device=words.device)
+    bad = torch.empty(B, dtype=torch.int32, device=words.device)
     if B:
-        err = _build.library().dct_vdec(
-            payload.data_ptr(), n.data_ptr(), z.data_ptr(), B, block_len, W,
-            _build.stream_of(payload),
+        err = _build.library().dct_vdec_words(
+            words.data_ptr(), start.data_ptr(), count.data_ptr(), n.data_ptr(),
+            z.data_ptr(), bad.data_ptr(), B, block_len, _build.stream_of(words),
         )
-        _build.check(err, "dct_vdec")
-        decode_vertical.launches += 1
+        _build.check(err, "dct_vdec_words")
+        decode_vertical_words.launches += 1
+    return z, bad
+
+
+def decode_vertical_words(
+    words: torch.Tensor,  # [W] int32 bit patterns: the frame's payload words
+    start: torch.Tensor,  # [B] first word of each block
+    count: torch.Tensor,  # [B] words of each block, start + count <= W
+    n: torch.Tensor,      # [B] valid samples
+    block_len: int,
+) -> torch.Tensor:
+    """K4: z [B, block_len] zigzag values as int32 bit patterns (zeros past
+    n) -- the contract of :func:`decode_vertical_words_plain`. One host read
+    of the kernel's per-block flags raises the twin's ValueError."""
+    if words.device.type == "cpu":
+        return decode_vertical_words_plain(words, start, count, n, block_len)
+    z, bad = launch_vdec_words(words, start, count, n, block_len)
+    if bool(bad.any()):
+        raise ValueError(ragged.BAD_VERTICAL_TABLE)
     return z
 
 
-decode_vertical.launches = 0
+decode_vertical_words.launches = 0

@@ -6,11 +6,12 @@ count used by adaptive selection, the bit-length cost used by
 coder="vertical" selection, the region assembly after the emit kernel,
 and the sync-entry parse.
 
-Layout of a staged payload row (the contract of the decode kernel, K4):
-``[sync words | one REGION_PAD-word slot per sub-block]``. A slot holds the
-sub's live disk words — ``pw*b`` plane words, ``ceil(n_exc/4)`` position
-words, the value words — then zeros. The encoder emits rows in this layout
-too, so compaction and staging are plain segment copies (kernels/ragged.py).
+Layout of a staged payload row (what the emission writes, and the input
+of K4's plain twin): ``[sync words | one REGION_PAD-word slot per
+sub-block]``. A slot holds the sub's live disk words — ``pw*b`` plane
+words, ``ceil(n_exc/4)`` position words, the value words — then zeros, so
+compaction and staging are plain segment copies (kernels/ragged.py). K4
+itself reads the compact disk words in place.
 
 u32 words are int64 values in ``[0, 2**32)`` inside this module and int32
 bit patterns at its edges (see ``dctpu_torch/_bits.py``).

@@ -223,20 +223,19 @@ def test_wrappers_refuse_other_devices():
     z = torch.zeros((2, 256), dtype=torch.int32, device="meta")
     n = torch.zeros(2, dtype=torch.int32, device="meta")
     h = torch.zeros((2, 4), dtype=torch.int32, device="meta")
-    rows = torch.zeros((2, 1 + 2 * 192), dtype=torch.int32, device="meta")
-    rice_rows = torch.zeros((2, 1 + 384 + 2), dtype=torch.int32, device="meta")
+    words = torch.zeros(64, dtype=torch.int32, device="meta")
     calls = [
         lambda: select_bp.adaptive_totals_bp(z, n, 256, 24),
         lambda: select_bp.adaptive_totals_xbp(z, h, n, 256, 24),
         lambda: vemit.vertical_emit_rows_z(z, n, 256),
         lambda: vemit.vertical_emit_rows(z, h, n, n, CodecConfig(block_len=256)),
         lambda: reconstruct.reconstruct(z, n, n, n, h, h),
-        lambda: vdec.decode_vertical(rows, n, 256),
+        lambda: vdec.decode_vertical_words(words, n, n, n, 256),
         lambda: rice_totals.rice_totals(z, n, 256, 24),
         lambda: rice_totals.rice_totals_xbp(z, h, n, 256, 24),
         lambda: rice_totals.rice_totals_lpc(z, h, n, (1, 2, 3, 4), 256, 24),
         lambda: pack.rice_pack(z, n, n, 256),
-        lambda: unpack.rice_unpack(rice_rows, n, n, 256),
+        lambda: unpack.rice_unpack_words(words, n, n, n, n, 256),
         lambda: select_reduce.adaptive_totals_reduce(z, n, 256, 24),
         lambda: exc_extract.exc_extract(z.reshape(2, 2, 128), n.reshape(2, 1)),
         lambda: transpose.grouped_bit_transpose32(z.reshape(4, 128)),

@@ -1,5 +1,6 @@
-"""The CUDA kernels K1-K9 and R (and the x forms of K2, K3 and K6) against
-their plain twins, on the card, and the launches of the round trips.
+"""The CUDA kernels K1-K9 and R (and the x forms of K2, K3 and K6, and the
+words forms of K4 and K5b) against their plain twins, on the card, and the
+launches of the round trips.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -12,6 +13,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import scatter_blocks
 from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import api, encode, predict
 from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
@@ -20,6 +22,7 @@ from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
     exc_extract,
     pack,
+    ragged,
     reconstruct,
     rice_totals,
     select_bp,
@@ -79,9 +82,10 @@ def test_kernels_match_twins_on_card(cuda, L):
               select_bp.adaptive_totals_lpc_plain(x, h, n, coeffs, L, 24))
     emitted = vemit.vertical_emit_rows_z(z, n, L)
     _same(emitted, vemit.vertical_emit_rows_z_plain(z, n, L))
-    rows = emitted[0]
-    _same((vdec.decode_vertical(rows, n, L),),
-          (vdec.decode_vertical_plain(rows, n, L),))
+    flat, wc = ragged.compact_vertical(emitted[0], L)
+    start = torch.cumsum(wc, 0) - wc
+    _same((vdec.decode_vertical_words(flat, start, wc, n, L),),
+          (vdec.decode_vertical_words_plain(flat, start, wc, n, L),))
 
 
 # every default table and the wrap table
@@ -126,8 +130,37 @@ def test_rice_kernels_match_twins_on_card(cuda, L):
               (rice_totals.rice_totals_lpc_plain(x, h, n, coeffs, L, 24),))
     packed = pack.rice_pack(z, k, n, L)
     _same(packed, pack.rice_pack_plain(z, k, n, L))
-    rows = torch.nn.functional.pad(packed[0], (0, 2))
-    _same((unpack.rice_unpack(rows, k, n, L),), (unpack.unpack(rows, k, n, L),))
+    flat = ragged.compact_payload(*packed, L)
+    wc = ragged.payload_word_counts(packed[1], L)
+    start = torch.cumsum(wc, 0) - wc
+    _same((unpack.rice_unpack_words(flat, start, wc, k, n, L),),
+          (unpack.rice_unpack_words_plain(flat, start, wc, k, n, L),))
+
+
+@pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
+def test_decode_words_match_twins_on_card(cuda, L):
+    """K5b and K4 read the blocks in place from words where they lie in a
+    shuffled order between words of no block; a few RICE blocks are cut
+    short (one below its sync table); a bad VERTICAL sync entry raises."""
+    z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 21))
+    payload, bit_len = pack.rice_pack(z, k, n, L)
+    flat = ragged.compact_payload(payload, bit_len, L)
+    words, start, count = scatter_blocks(
+        flat, ragged.payload_word_counts(bit_len, L), seed=L)
+    count[0] -= 5
+    count[2] //= 2
+    count[5] = 0
+    _same((unpack.rice_unpack_words(words, start, count, k, n, L),),
+          (unpack.rice_unpack_words_plain(words, start, count, k, n, L),))
+
+    rows = vemit.vertical_emit_rows_z(z, n, L)[0]
+    words, start, count = scatter_blocks(*ragged.compact_vertical(rows, L),
+                                         seed=L + 1)
+    _same((vdec.decode_vertical_words(words, start, count, n, L),),
+          (vdec.decode_vertical_words_plain(words, start, count, n, L),))
+    words[start[3]] = (words[start[3]] & -(1 << 16)) | 40  # sub 0: b = 40
+    with pytest.raises(ValueError, match="sync table does not match"):
+        vdec.decode_vertical_words(words, start, count, n, L)
 
 
 def test_rice_select_launches_x_forms_on_card(cuda):
@@ -238,8 +271,9 @@ def test_backend_paths_on_card(cuda):
 
 @pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
 def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
-    """R once per coder group in every decode, K3's x form once per VERTICAL
-    group; the plain stages it replaces never run on the card."""
+    """R once per coder group in every decode, K3's x form and K4 once per
+    VERTICAL group, K5b once per RICE group; the plain stages they replace
+    (the staging of the decode's rows among them) never run on the card."""
     cfg = CodecConfig(block_len=1000, coder=coder)
     streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
                                       cumulative_frac=0.5)
@@ -250,10 +284,13 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     monkeypatch.setattr(encode, "assemble_rows", refuse)
     monkeypatch.setattr(vemit, "assemble_rows", refuse)
     monkeypatch.setattr(predict, "reconstruct_lpc", refuse)
+    monkeypatch.setattr(ragged, "stage_vertical", refuse)
+    monkeypatch.setattr(ragged, "pad_payload", refuse)
     if coder == "vertical":  # the rice emission still derives z in torch
         monkeypatch.setattr(predict, "chosen_residuals", refuse)
     counted = (reconstruct.reconstruct, vemit.vertical_emit_rows,
-               vemit.vertical_emit_rows_z)
+               vemit.vertical_emit_rows_z, vdec.decode_vertical_words,
+               unpack.rice_unpack_words)
     for fn in counted:
         fn.launches = 0
     frame = api.compress(streams, cfg, ids, cads, device=cuda)
@@ -261,5 +298,6 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     vert = int((frame.blocks.coder_arr() == 1).any())
     out = api.decompress(read_frame(write_frame(frame)), device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
-    assert [fn.launches for fn in counted] == [groups, vert, 0]
+    assert [fn.launches for fn in counted] == [groups, vert, 0, vert,
+                                               groups - vert]
     assert groups == (2 if coder == "adaptive" else 1)

@@ -1,8 +1,8 @@
 """K5a's and K5b's plain twins vs the JAX reference's RICE packers.
 
 K5a (``pack.rice_pack`` on CPU tensors) is held against ``pack_pallas``
-in interpret mode and the XLA ``pack_scan``; K5b (``unpack.rice_unpack``
-on the port's ``pad_payload`` rows) against ``unpack_pallas`` and
+in interpret mode and the XLA ``pack_scan``; K5b (``unpack.rice_unpack_words``
+on the frame's compact words) against ``unpack_pallas`` and
 ``unpack_scan`` on the reference's ``stage_rice_scan`` rows of the same
 disk words. Tolerance: exact.
 """
@@ -23,7 +23,7 @@ from dctpu.kernels.unpack_scan import (
     stage_rice_scan,
     unpack_scan,
 )
-from dctpu_torch.kernels import pack, ragged, unpack
+from dctpu_torch.kernels import pack, unpack
 
 K_CASES = ("0", "5", "27", "mixed")
 
@@ -92,12 +92,9 @@ def test_k5b_twin_matches_pallas_and_scan(L, k_case):
     z_pal = np.asarray(unpack_pallas(staged, kj, nj, L, ub, interpret=True))
     z_scan = np.asarray(unpack_scan(staged, kj, nj, L, ub))
 
-    port_rows = ragged.pad_payload(
+    got = unpack.rice_unpack_words(
         torch.from_numpy(flat.view(np.int32)), torch.from_numpy(off[:-1]),
-        torch.from_numpy(wc), pack.padded_words(L) + 2,
-    )
-    got = unpack.rice_unpack(
-        port_rows, torch.from_numpy(k), torch.from_numpy(n), L
+        torch.from_numpy(wc), torch.from_numpy(k), torch.from_numpy(n), L,
     ).numpy().view(np.uint32)
     assert np.array_equal(got, z_pal)
     assert np.array_equal(got, z_scan)

@@ -52,7 +52,7 @@ def test_k4_twin_matches_reference(rng, L):
     rows = torch.from_numpy(np.array(payload).view(np.int32))
     _, n_exc, e, _ = parse_sync(rows[:, : sync_words(L)], subs_per_block(L))
     assert bool((n_exc > (e + 1) // 2).any()), "no bit-planed layout exercised"
-    got = vdec.decode_vertical(rows, torch.from_numpy(n), L)
+    got = vdec.decode_vertical_plain(rows, torch.from_numpy(n), L)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy().view(np.uint32), np.asarray(want))
     valid = np.arange(L)[None, :] < n[:, None]
