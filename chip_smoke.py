@@ -16,7 +16,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      for DELTA + DOUBLE_DELTA ("K6-xbp") and for an LPC table ("K6-lpc",
      the same tables), K3 in its two, the payload rows from the raw
      samples with every candidate of those tables chosen ("K3") and from
-     zigzag values ("K3-z"), R (the reconstruction) on every predictor and
+     zigzag values ("K3-z"), K5a in its two, likewise ("K5a", the RICE
+     rows from the raw samples at every k in 0..30, and "K5a-z"), K9's
+     disk-order planes, R (the reconstruction) on every predictor and
      table, with histories at the int32 extremes, and the decode kernels
      K4 and K5b on the compact words of their blocks, laid out in a
      shuffled order between words of no block, a few RICE blocks cut
@@ -30,10 +32,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      K1 once and K2's LPC form once per LPC candidate on the adaptive
      paths; R once per coder group in every decode, K5b once per RICE
      group and K4 once per VERTICAL group; K3 once per VERTICAL group and
-     its z form never), and the plain torch stages that R, K3, K4 and K5b
+     its z form never; K5a's x form once per RICE group and its z form
+     never), and the plain torch stages that R, K3, K4, K5a and K5b
      replace never run (the LPC recurrence loop, the region assembly, the
-     winner's residuals in a VERTICAL emission, the staging of the
-     decode's rows), with the device segments each compress obtained from
+     winner's residuals in an emission, the staging of the decode's
+     rows), with the device segments each compress obtained from
      the allocator (and, for the adaptive path, the stage times of a
      second compress on the cached segments); then, on the same corpus,
      the adaptive selection under
@@ -42,11 +45,15 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      full-size check of the LPC residuals derived in K2), the VERTICAL
      emission of the vertical path's selection through K3's z form (the
      reference's encode_vertical signature; rows equal to the x form's),
-     and the adaptive and vertical round trips under backend="pallas" (K9
-     and K8 in place of K3; frames byte-identical to the default ones);
-     then K5b and K4 on the coder groups of those frames, read in place
-     as the decode reads them (the main path's kernel times, the adaptive
-     RICE group's 1351 blocks beside the rice path's 8192);
+     the RICE emission of the rice path's selection through K5a's z form
+     (the reference's pack signature; rows equal to the x form's), and
+     the adaptive and vertical round trips under backend="pallas" (K9
+     and K8 in place of K3, the staged emission without a flip; frames
+     byte-identical to the default ones); then K5b and K4 on the coder
+     groups of those frames, read in place as the decode reads them, and
+     K5a's x form on their RICE groups from the corpus's blocks (the main
+     path's kernel times, the adaptive RICE group's 1351 blocks beside
+     the rice path's 8192);
   4. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
      port's frame back to the input;
@@ -211,9 +218,11 @@ def work(key, B, L, n, b, rows_words, preds):
     chosen candidate's PRED_OPS in its x form, from preds), PRED_OPS per
     valid sample for R, 3 per decoded plane bit for K4, ~20 per codeword
     for the RICE pack (codeword, scan, ORs) and unpack (window, count,
-    extract), 4 per sub-block word for K8 (shift, compare, vote, rank) and
-    32 per word for K9 (one vote per plane). K3's output is its payload
-    rows, rows_words["K3"] words, whole; K4 and K5b read the count_i words
+    extract; plus the chosen candidate's PRED_OPS in K5a's x form), 4 per
+    sub-block word for K8 (shift, compare, vote, rank) and 15 per word
+    for K9 (the masked-swap network: 5 stages of 16 swaps of 6 ops per
+    32 words). K3's output is its payload rows, rows_words["K3"] words,
+    whole, and K5a's rows_words["K5a"]; K4 and K5b read the count_i words
     of each block, rows_words["K4"] and ["K5b"] in all, with its start
     (8 bytes) and count."""
     v = int(n.clamp(0, L).sum())
@@ -236,7 +245,10 @@ def work(key, B, L, n, b, rows_words, preds):
               pred_ops(n, L, preds["R"])),
         "K4": (4 * rows_words["K4"] + 16 * B + 4 * B + 4 * B * L,
                3 * 128 * int(b.sum())),
-        "K5a": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
+        "K5a": (4 * B * L + 16 * B + 12 * B + 20 * rows_words["cands"]
+                + 4 * rows_words["K5a"] + 8 * B,
+                20 * v + pred_ops(n, L, preds["K5a"])),
+        "K5a-z": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
         "K5b": (4 * rows_words["K5b"] + 12 * B + 8 * B + 4 * B * L, 20 * v),
         "K6": (4 * B * L + 4 * B + 4 * B * K1, rice),
         "K6-xbp": (4 * B * L + 16 * B + 4 * B + 8 * B * K1,
@@ -245,7 +257,7 @@ def work(key, B, L, n, b, rows_words, preds):
                    rice + v * LPC_OPS),
         "K7": (4 * B * L + 4 * B + 4 * B * (K1 + 1), select),
         "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
-        "K9": (sub_bytes * 128 * 2, 32 * 128 * R),
+        "K9": (sub_bytes * 128 * 2, 15 * 128 * R),
     }[key]
 
 
@@ -262,8 +274,10 @@ RECS = {
              "dctpu/kernels/vemit_pallas.py:116"),
     "K4": ("K4 vdec_words", "dctpu_torch/csrc/vdec.cu",
            "dctpu/kernels/vdec_pallas.py:76"),
-    "K5a": ("K5a rice_pack", "dctpu_torch/csrc/pack.cu",
+    "K5a": ("K5a rice_pack_rows (x form)", "dctpu_torch/csrc/pack.cu",
             "dctpu/kernels/attic/pack_pallas.py:72"),
+    "K5a-z": ("K5a rice_pack (z form)", "dctpu_torch/csrc/pack.cu",
+              "dctpu/kernels/attic/pack_pallas.py:72"),
     "K5b": ("K5b rice_unpack_words", "dctpu_torch/csrc/unpack.cu",
             "dctpu/kernels/attic/unpack_pallas.py:56"),
     "K6": ("K6 rice_totals", "dctpu_torch/csrc/select.cu",
@@ -277,7 +291,7 @@ RECS = {
            "dctpu/kernels/select_pallas.py:79"),
     "K8": ("K8 exc_extract", "dctpu_torch/csrc/exc.cu",
            "dctpu/kernels/vertical_pallas.py:43"),
-    "K9": ("K9 bit_transpose", "dctpu_torch/csrc/transpose.cu",
+    "K9": ("K9 bit_planes32 (disk order)", "dctpu_torch/csrc/transpose.cu",
            "dctpu/kernels/transpose_pallas.py:83"),
     "R": ("R reconstruct", "dctpu_torch/csrc/recon.cu",
           "dctpu/codec/predict.py:93"),
@@ -307,7 +321,12 @@ def check_kernels(dev):
 
     from dctpu_torch._bits import to_i32
     from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
-    from dctpu_torch.kernels.pack import rice_pack, rice_pack_plain
+    from dctpu_torch.kernels.pack import (
+        rice_pack,
+        rice_pack_plain,
+        rice_pack_rows,
+        rice_pack_rows_plain,
+    )
     from dctpu_torch.kernels.rice_totals import (
         rice_totals,
         rice_totals_lpc,
@@ -329,10 +348,7 @@ def check_kernels(dev):
         adaptive_totals_reduce,
         adaptive_totals_reduce_plain,
     )
-    from dctpu_torch.kernels.transpose import (
-        grouped_bit_transpose32,
-        grouped_bit_transpose32_plain,
-    )
+    from dctpu_torch.kernels.transpose import bit_planes32, bit_planes32_plain
     from dctpu_torch.kernels import ragged
     from dctpu_torch.kernels.reconstruct import reconstruct, reconstruct_plain
     from dctpu_torch.kernels.unpack import (
@@ -362,10 +378,11 @@ def check_kernels(dev):
     # K2-lpc and K6-lpc are held against their twins with every default
     # table and one whose products wrap the int64 accumulator on the
     # -2**31 samples of row 0; they are timed with the first default table.
-    # K3 chooses every candidate of those tables in turn, block by block;
-    # R gives block i predictor i % 3 and table i // 3 % T, so that block 14
-    # runs the wrap table, here on -2**31 samples (a -2**31 history and
-    # residuals, z = 0xFFFFFFFF)
+    # K3 and K5a's x form choose every candidate of those tables in turn,
+    # block by block, K5a at k = i % 31 on block i; R gives block i
+    # predictor i % 3 and table i // 3 % T, so that block 14 runs the wrap
+    # table, here on -2**31 samples (a -2**31 history and residuals,
+    # z = 0xFFFFFFFF)
     tables = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP_COEFFS]
     extremes = torch.tensor([-(2**31), 2**31 - 1] * 2, dtype=torch.int32)
     for si, (B, L) in enumerate(SHAPES):
@@ -380,6 +397,7 @@ def check_kernels(dev):
         cands = cfg.candidates()
         blocks = torch.arange(B, device=dev)
         choice = (blocks % len(cands)).to(torch.int32)
+        k31 = (blocks % 31).to(torch.int32)
         pred_r = (blocks % 3).to(torch.int32)
         tidx = (blocks // 3 % len(tables)).to(torch.int32)
         coeffs = torch.tensor(tables, dtype=torch.int32, device=dev)
@@ -388,10 +406,8 @@ def check_kernels(dev):
         hist_r[14] = -(2**31)
         zr = z.clone()
         zr[14] = -1
-        preds = {
-            "K3": torch.tensor([p for p, _ in cands], device=dev)[choice.long()],
-            "R": pred_r,
-        }
+        chosen = torch.tensor([p for p, _ in cands], device=dev)[choice.long()]
+        preds = {"K3": chosen, "K5a": chosen, "R": pred_r}
         payload, bit_len = rice_pack_plain(z, k, n, L)
         # K5b and K4 read their blocks in place from the frame's compact
         # words, here shuffled between words of no block; three RICE
@@ -405,13 +421,12 @@ def check_kernels(dev):
         v_words, v_start, v_count = scatter_blocks(
             *ragged.compact_vertical(rows, L), seed=300 + si)
         # K8 and K9 take the staged emission's inputs: the sub-block rows
-        # (zero past n) with the width rule's b (b = 0 and 32 on two blocks,
-        # so that ranks past EXC_CAP are dropped), and their lane-reversed
-        # 32-word groups
+        # (zero past n), with the width rule's b for K8 (b = 0 and 32 on two
+        # blocks, so that ranks past EXC_CAP are dropped)
         zs = to_i32(sub_rows(z, n, L)).reshape(B, -1, 128)
         b_exc = b.clone()
         b_exc[0], b_exc[1] = 0, 32
-        groups = zs.reshape(-1, 4, 32).flip(-1).reshape(-1, 128)
+        groups = zs.reshape(-1, 128)
         cases = {
             "K1": (lambda: adaptive_totals_xbp(x, hist, n, L, K),
                    lambda: adaptive_totals_xbp_plain(x, hist, n, L, K)),
@@ -431,8 +446,10 @@ def check_kernels(dev):
                                                   n, L),),
                    lambda: (decode_vertical_words_plain(v_words, v_start,
                                                         v_count, n, L),)),
-            "K5a": (lambda: rice_pack(z, k, n, L),
-                    lambda: rice_pack_plain(z, k, n, L)),
+            "K5a": (lambda: rice_pack_rows(x, hist_r, n, choice, k31, cfg),
+                    lambda: rice_pack_rows_plain(x, hist_r, n, choice, k31, cfg)),
+            "K5a-z": (lambda: rice_pack(z, k, n, L),
+                      lambda: rice_pack_plain(z, k, n, L)),
             "K5b": (lambda: (rice_unpack_words(r_words, r_start, r_count, k,
                                                n, L),),
                     lambda: (rice_unpack_words_plain(r_words, r_start,
@@ -450,8 +467,8 @@ def check_kernels(dev):
                    lambda: adaptive_totals_reduce_plain(z, n, L, K)),
             "K8": (lambda: exc_extract(zs, b_exc),
                    lambda: exc_extract_plain(zs, b_exc)),
-            "K9": (lambda: (grouped_bit_transpose32(groups),),
-                   lambda: (grouped_bit_transpose32_plain(groups),)),
+            "K9": (lambda: (bit_planes32(groups),),
+                   lambda: (bit_planes32_plain(groups),)),
             "R": (lambda: (reconstruct(zr, n, pred_r, tidx, hist_r, coeffs),),
                   lambda: (reconstruct_plain(zr, n, pred_r, tidx, hist_r,
                                              coeffs),)),
@@ -483,6 +500,7 @@ def check_kernels(dev):
                 words = {  # the live words, not the rows' padding
                     "K4": int(v_count.sum()),
                     "K5a": int(payload.numel()),
+                    "K5a-z": int(payload.numel()),
                     "K5b": int(r_count.sum()),
                     "K3": int(rows.numel()),
                     "cands": len(cands),
@@ -502,26 +520,34 @@ def check_kernels(dev):
     return recs
 
 
-def group_times(dev, frames, recs) -> None:
+def group_times(dev, frames, recs, streams) -> None:
     """K5b and K4 on the coder groups of the 128 MiB frames, each block read
-    in place from its frame's words as the decode reads it: the main
-    path's kernel times (K4 without the wrapper's flag read), each beside
-    the time its bytes take at the card's memory rate (the words read,
-    start, count, k and n, z written)."""
+    in place from its frame's words as the decode reads it, and K5a's x
+    form on their RICE groups, from the corpus's blocks with each block's
+    candidate and k from its frame: the main path's kernel times (K4
+    without the wrapper's flag read), each beside the time its bytes take
+    at the card's memory rate (K5b and K4: the words read, start, count,
+    k and n, z written; K5a: x, history, n, k and choice read, the padded
+    rows and bit_len written)."""
     import numpy as np
     import torch
 
+    from dctpu_torch.codec.api import build_blocks
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.constants import LPC
     from dctpu_torch.format import read_frame
+    from dctpu_torch.kernels.pack import padded_words, rice_pack_rows
     from dctpu_torch.kernels.unpack import rice_unpack_words
     from dctpu_torch.kernels.vdec import launch_vdec_words
 
+    blocks = None
     for coder in CODERS:
         frame = read_frame(frames[coder])
         hb, L = frame.blocks, frame.block_len
         off = hb.word_offsets(L)
         words = torch.from_numpy(
             np.ascontiguousarray(frame.payload_words).view(np.int32)).to(dev)
-        for gid, key in ((0, "K5b"), (1, "K4")):
+        for gid, key in ((0, "K5b"), (1, "K4"), (0, "K5a")):
             idx = np.nonzero(hb.coder_arr() == gid)[0]
             if idx.size == 0:
                 continue
@@ -531,10 +557,31 @@ def group_times(dev, frames, recs) -> None:
                           hb.n.astype(np.int32), hb.k.astype(np.int32)))
             if key == "K5b":
                 fn = lambda: rice_unpack_words(words, start, count, k, n, L)  # noqa: E731
-            else:
+                nbytes = 4 * int(count.sum()) + 20 * idx.size + 4 * idx.size * L
+            elif key == "K4":
                 fn = lambda: launch_vdec_words(words, start, count, n, L)  # noqa: E731
+                nbytes = 4 * int(count.sum()) + 20 * idx.size + 4 * idx.size * L
+            else:
+                cfg = CodecConfig(block_len=L, lpc_tables=tuple(frame.tables))
+                cand = {(p, ti if p == LPC else 0): ci
+                        for ci, (p, ti) in enumerate(cfg.candidates())}
+                choice_h = np.array([cand[p, t] for p, t in zip(
+                    hb.predictor[idx].tolist(), hb.table_idx[idx].tolist())],
+                    np.int32)
+                if blocks is None:
+                    blocks = build_blocks(streams, L)[:3]
+                x, nx, hist = (torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev)
+                               for a in blocks)
+                choice = torch.from_numpy(choice_h).to(dev)
+                fn = lambda: rice_pack_rows(x, hist, nx, choice, k, cfg)  # noqa: E731
+                bl = fn()[1].cpu().numpy()
+                if not np.array_equal(bl, hb.bit_len[idx]):
+                    fail(f"K5a's x form on the {coder} RICE group gives other "
+                         "bit lengths than the frame's")
+                nbytes = (4 * idx.size * L + 28 * idx.size
+                          + 20 * len(cfg.candidates())
+                          + 4 * idx.size * padded_words(L) + 8 * idx.size)
             ms = time_ms(fn, 10)
-            nbytes = 4 * int(count.sum()) + 20 * idx.size + 4 * idx.size * L
             b_ms = nbytes / PEAK_BYTES_S * 1e3
             group = f"{coder} {'RICE' if gid == 0 else 'VERTICAL'} group"
             recs[key].setdefault("ms_by_group", {})[group] = ms
@@ -582,7 +629,8 @@ def counters():
         "K3": (vemit.vertical_emit_rows,),
         "K3-z": (vemit.vertical_emit_rows_z,),
         "K4": (vdec.decode_vertical_words,),
-        "K5a": (pack.rice_pack,),
+        "K5a": (pack.rice_pack_rows,),
+        "K5a-z": (pack.rice_pack,),
         "K5b": (unpack.rice_unpack_words,),
         "K6": (rice_totals.rice_totals, rice_totals.rice_totals_xbp,
                rice_totals.rice_totals_lpc),
@@ -590,7 +638,7 @@ def counters():
         "K6-lpc": (rice_totals.rice_totals_lpc,),
         "K7": (select_reduce.adaptive_totals_reduce,),
         "K8": (exc_extract.exc_extract,),
-        "K9": (transpose.grouped_bit_transpose32,),
+        "K9": (transpose.bit_planes32,),
         "R": (reconstruct.reconstruct,),
     }
 
@@ -616,25 +664,29 @@ NEEDS = {
     ("vertical", "pallas"): ("K4", "K8", "K9", "R"),
 }
 NEVER = {
-    ("adaptive", None): ("K3-z",),
-    ("vertical", None): ("K3-z",),
-    ("adaptive", "pallas"): ("K3", "K3-z"),
-    ("vertical", "pallas"): ("K3", "K3-z"),
+    ("adaptive", None): ("K3-z", "K5a-z", "K9"),
+    ("rice", None): ("K5a-z",),
+    ("vertical", None): ("K3-z", "K5a-z", "K9"),
+    ("adaptive", "pallas"): ("K3", "K3-z", "K5a-z"),
+    ("vertical", "pallas"): ("K3", "K3-z", "K5a-z"),
 }
 
 
 @contextlib.contextmanager
 def plain_calls():
-    """Counts the calls of the plain torch stages that R, K3, K4 and K5b
-    replace on the default paths: the LPC recurrence loop, the region
-    assembly, the winner's residuals of an emission (a RICE group's, and a
-    VERTICAL group's on the staged backends), and the staging of the
-    decode's VERTICAL and RICE rows."""
+    """Counts the calls of the plain torch stages that R, K3, K4, K5a and
+    K5b replace on the default paths: the LPC recurrence loop, the region
+    assembly, the winner's residuals of an emission (a VERTICAL group's on
+    the staged backends only), and the staging of the decode's VERTICAL
+    and RICE rows; and the flips in the staged VERTICAL emission, which K9
+    no longer needs."""
+    import torch
+
     from dctpu_torch.codec import encode, predict
     from dctpu_torch.kernels import ragged, vemit
 
     counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0,
-              "stage_vertical": 0, "pad_payload": 0}
+              "stage_vertical": 0, "pad_payload": 0, "staged_flip": 0}
     patched = [(predict, "reconstruct_lpc"), (encode, "assemble_rows"),
                (vemit, "assemble_rows"), (predict, "chosen_residuals"),
                (ragged, "stage_vertical"), (ragged, "pad_payload")]
@@ -646,13 +698,28 @@ def plain_calls():
             return fn(*args, **kwargs)
         return call
 
+    flips = [(torch.Tensor, "flip"), (torch, "flip")]
+    staged = encode._emit_staged
+
+    def staged_flips(*args):
+        saved_flips = [getattr(mod, name) for mod, name in flips]
+        for (mod, name), fn in zip(flips, saved_flips):
+            setattr(mod, name, counting("staged_flip", fn))
+        try:
+            return staged(*args)
+        finally:
+            for (mod, name), fn in zip(flips, saved_flips):
+                setattr(mod, name, fn)
+
     for (mod, name), fn in zip(patched, saved):
         setattr(mod, name, counting(name, fn))
+    encode._emit_staged = staged_flips
     try:
         yield counts
     finally:
         for (mod, name), fn in zip(patched, saved):
             setattr(mod, name, fn)
+        encode._emit_staged = staged
 
 
 def segments() -> int:
@@ -738,11 +805,10 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
         fail(f"kernels launched on the {name} path that it replaces: {extra}")
     groups = int((hist > 0).sum())
     staged = backend is not None
-    want_plain = {"reconstruct_lpc": 0,
-                  "assemble_rows": int(staged and hist[1] > 0),
-                  "chosen_residuals": int(hist[0] > 0)
-                  + int(staged and hist[1] > 0),
-                  "stage_vertical": 0, "pad_payload": 0}
+    staged_vert = int(staged and hist[1] > 0)
+    want_plain = {"reconstruct_lpc": 0, "assemble_rows": staged_vert,
+                  "chosen_residuals": staged_vert, "stage_vertical": 0,
+                  "pad_payload": 0, "staged_flip": 0}
     if (launches["R"], launches["K3"], plain) != (
             groups, 0 if staged else int(hist[1] > 0), want_plain):
         fail(f"R launched {launches['R']} times (want {groups}, one per coder "
@@ -751,6 +817,9 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     if (launches["K5b"], launches["K4"]) != (int(hist[0] > 0), int(hist[1] > 0)):
         fail(f"K5b launched {launches['K5b']} times (want one per RICE group), "
              f"K4 {launches['K4']} (want one per VERTICAL group)")
+    if (launches["K5a"], launches["K9"]) != (int(hist[0] > 0), staged_vert):
+        fail(f"K5a's x form launched {launches['K5a']} times (want one per "
+             f"RICE group), K9 {launches['K9']} (want {staged_vert})")
     stages = [k for k in dec_ms if k.startswith("stage_")]
     if stages:
         fail(f"the {name} decode still stages rows: {stages}")
@@ -807,44 +876,51 @@ def reduce_select_check(dev, streams) -> dict:
     return launches
 
 
-def zform_emit_check(dev, streams) -> dict:
-    """Phase 3, K3's z form: the VERTICAL emission of the 128 MiB corpus
-    under the vertical path's selection, through ``encode_vertical`` (the
-    reference's signature, on the winner's zigzag values), equals the
-    default emission (K3's x form). Returns the launches of the z-form
-    run."""
+def zform_emit_check(dev, streams, coder) -> dict:
+    """Phase 3, the z forms: the emission of the 128 MiB corpus under the
+    coder's single-coder selection, through the reference's signature on
+    the winner's zigzag values (VERTICAL: ``encode_vertical``, K3's z
+    form; RICE: ``rice_pack``, K5a's z form), equals the default emission
+    (the x form). Returns the launches of the z-form run."""
     import torch
 
     from dctpu_torch.codec import encode, predict, rice
     from dctpu_torch.codec.api import build_blocks
     from dctpu_torch.config import CodecConfig
+    from dctpu_torch.kernels.pack import rice_pack
 
-    cfg = CodecConfig(coder="vertical")
+    cfg = CodecConfig(coder=coder)
     L = cfg.block_len
     x, n, hist = (torch.from_numpy(a).to(dev)
                   for a in build_blocks(streams, L)[:3])
     choice, k = encode.select_blocks(x, n, hist, cfg)
     z = rice.zigzag(predict.chosen_residuals(
         x, hist, choice, predict.candidate_coeffs(cfg)))
-    want = encode.emit_blocks(x, n, hist, choice, k, cfg, "vertical")
-    encode.encode_vertical(z, n, L)  # warm-up, not counted
+    want = encode.emit_blocks(x, n, hist, choice, k, cfg, coder)
+    if coder == "vertical":
+        name, key, x_key = "encode_vertical", "K3-z", "K3"
+        emit = lambda: encode.encode_vertical(z, n, L)  # noqa: E731
+    else:
+        name, key, x_key = "rice_pack", "K5a-z", "K5a"
+        emit = lambda: rice_pack(z, k, n, L)  # noqa: E731
+    emit()  # warm-up, not counted
     torch.cuda.synchronize()
     reset_counters()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    got = encode.encode_vertical(z, n, L)
+    got = emit()
     end.record()
     torch.cuda.synchronize()
     launches = read_counters()
     if not all(torch.equal(a, b) for a, b in zip(got, want)):
-        fail("K3's z form rows differ from the x form's at 128 MiB")
-    print(f"vertical/z-form emission: rows equal to the default emission's, "
-          f"{int(x.shape[0])} blocks; encode_vertical {start.elapsed_time(end):.3f}"
+        fail(f"{key}'s rows differ from the x form's at 128 MiB")
+    print(f"{coder}/z-form emission: rows equal to the default emission's, "
+          f"{int(x.shape[0])} blocks; {name} {start.elapsed_time(end):.3f}"
           f" ms, CUDA events; launches {json.dumps(launches)}", flush=True)
-    if launches["K3-z"] != 1 or launches["K3"]:
-        fail(f"encode_vertical launched K3's z form {launches['K3-z']} times "
-             f"(want 1), its x form {launches['K3']} (want 0)")
+    if launches[key] != 1 or launches[x_key]:
+        fail(f"{name} launched {key} {launches[key]} times (want 1), "
+             f"{x_key} {launches[x_key]} (want 0)")
     return launches
 
 
@@ -906,7 +982,7 @@ def cli_check() -> None:
 def ptxas_report(log: str) -> dict:
     """{kernel: "N registers, smem, spill"} from the nvcc -Xptxas=-v log;
     a dct::...<Src i, VERT> template shows as "name<Src i, true|false>",
-    a dct::...<bool> one as "name<true|false>"."""
+    a dct::...<bool, ...> one as "name<true|false, ...>"."""
     import re
 
     out, name, spill = {}, None, ""
@@ -918,12 +994,14 @@ def ptxas_report(log: str) -> dict:
             name = (mangled[short.end():short.end() + int(short.group(1))]
                     if short else mangled)
             arg = re.search(r"SrcE(\d)ELb(\d)", mangled)
-            flag = re.search(r"ILb(\d)EE", mangled)
+            flags = re.search(r"I((?:Lb\dE)+)E", mangled)
             if arg:
                 vert = "true" if arg.group(2) == "1" else "false"
                 name += f"<Src {arg.group(1)}, {vert}>"
-            elif flag:
-                name += "<true>" if flag.group(1) == "1" else "<false>"
+            elif flags:
+                bools = re.findall(r"Lb(\d)E", flags.group(1))
+                name += "<" + ", ".join(
+                    "true" if d == "1" else "false" for d in bools) + ">"
         elif "spill stores" in line:
             spill = line.strip()
         elif "Used" in line and "registers" in line and name:
@@ -975,7 +1053,8 @@ def main() -> int:
     for coder in CODERS:
         frames[coder], by_path[coder] = run_path(dev, coder, streams, ids, cads)
     by_path["adaptive/reduce-select"] = reduce_select_check(dev, streams)
-    by_path["vertical/z-form-emit"] = zform_emit_check(dev, streams)
+    for coder in ("vertical", "rice"):
+        by_path[f"{coder}/z-form-emit"] = zform_emit_check(dev, streams, coder)
     for coder in ("adaptive", "vertical"):
         data, by_path[path_name(coder, "pallas")] = run_path(
             dev, coder, streams, ids, cads, backend="pallas")
@@ -986,17 +1065,18 @@ def main() -> int:
               flush=True)
     # the count of the path each kernel was ported for: K1-K4 and R the
     # adaptive path, K5a, K5b and K6's forms the rice path, K7 the "reduce"
-    # selection, K3's z form the z-form emission, K8 and K9 the adaptive
-    # path under backend="pallas"
+    # selection, K3's and K5a's z forms the z-form emissions, K8 and K9 the
+    # adaptive path under backend="pallas"
     home = {"K5a": "rice", "K5b": "rice", "K6": "rice", "K6-xbp": "rice",
             "K6-lpc": "rice", "K3-z": "vertical/z-form-emit",
+            "K5a-z": "rice/z-form-emit",
             "K7": "adaptive/reduce-select", "K8": "adaptive/pallas",
             "K9": "adaptive/pallas"}
     for key, r in recs.items():
         r["launches"] = by_path[home.get(key, "adaptive")][key]
         r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
-    print("decode kernels on the frames' coder groups:", flush=True)
-    group_times(dev, frames, recs)
+    print("K5b, K4 and K5a's x form on the frames' coder groups:", flush=True)
+    group_times(dev, frames, recs, streams)
     oracle_check(streams, ids, cads, frames)
     cli_check()
 

@@ -14,10 +14,10 @@ from the samples (the TPU ran K6 on each candidate's zigzag values,
 ``rice.choose_k_auto``).
 coder="vertical": the bit-length cost of each candidate's zigzag values,
 plain torch (XLA on the TPU too). Emission runs the coder of the group:
-for VERTICAL, K3's x form, which derives each block's chosen residuals
-from the samples and writes the payload rows (the TPU ran its emit kernel
-on zigzag values derived in XLA, then assembled the rows in XLA); for
-RICE, the winner's zigzag values in torch, then K5a.
+for VERTICAL, K3's x form, for RICE, K5a's x form; each derives every
+block's chosen residuals from the samples and writes the payload rows
+(the TPU ran its emit and pack kernels on zigzag values derived in XLA,
+then assembled the VERTICAL rows in XLA).
 
 ``backend`` is the reference's encode-side kernel choice
 (``dctpu/codec/encode.py``, ``dctpu/kernels/api.py``). Every name gives
@@ -26,8 +26,9 @@ the same frame; it only picks the implementation of each stage:
   * ``None`` / ``"auto"``, and ``"scan"``, ``"merge"``, ``"scatter"`` (the
     reference's XLA packers; the port's one packer is K5a): as above;
   * ``"pallas"`` (any name starting with it, for VERTICAL): VERTICAL
-    emission takes the staged branch on the winner's zigzag values, K9
-    then the width rule then K8, then the region assembly in torch;
+    emission takes the staged branch on the winner's zigzag values, K9's
+    disk-order planes, the width rule, K8, then the region assembly in
+    torch;
   * ``"reduce"``: adaptive selection runs K7 for every candidate;
   * ``"bp"``: as ``"auto"`` for selection and VERTICAL emission;
   * ``"xla"``, the reference's portable opt-out: as ``"auto"``, but
@@ -55,11 +56,11 @@ from dctpu_torch.codec import predict, rice
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import DELTA, LPC, subs_per_block
 from dctpu_torch.kernels.exc_extract import exc_extract
-from dctpu_torch.kernels.pack import rice_pack
+from dctpu_torch.kernels.pack import rice_pack_rows
 from dctpu_torch.kernels.rice_totals import rice_totals_lpc, rice_totals_xbp
 from dctpu_torch.kernels.select_bp import adaptive_totals_lpc, adaptive_totals_xbp
 from dctpu_torch.kernels.select_reduce import adaptive_totals_reduce
-from dctpu_torch.kernels.transpose import grouped_bit_transpose32
+from dctpu_torch.kernels.transpose import bit_planes32
 from dctpu_torch.kernels.vemit import vertical_emit_rows, vertical_emit_rows_z
 from dctpu_torch.kernels.vertical import (
     assemble_rows,
@@ -184,18 +185,14 @@ def adaptive_select(
 
 def _emit_staged(z: torch.Tensor, n: torch.Tensor, block_len: int):
     """The staged VERTICAL analysis of the reference's encode_vertical
-    (exc_backend "pallas" or "xla"), with K3's outputs: the plane words by
-    the grouped 32x32 bit transpose (K9), the width rule in torch, the
-    exceptions at that width (K8)."""
+    (exc_backend "pallas" or "xla"), with K3's outputs: the plane words in
+    disk order (K9), the width rule in torch, the exceptions at that width
+    (K8)."""
     B = z.shape[0]
     S = subs_per_block(block_len)
     rows = sub_rows(z, n, block_len)  # [B*S, 128] int64, zero past n
     zs = to_i32(rows)
-    # K9 takes and gives lane-reversed groups: rev(K9(rev(g))) is the
-    # transpose, word w of plane p at [w, p]; the disk order is p-major
-    groups = zs.reshape(-1, 4, 32).flip(-1).reshape(-1, 128)
-    planes = grouped_bit_transpose32(groups).reshape(-1, 4, 32)
-    planes = planes.flip(-1).transpose(1, 2)
+    planes = bit_planes32(zs)  # disk order: plane p of group w at p*4 + w
     pw = plane_word_counts(block_len, z.device).repeat(B)
     b, words, n_exc, e = (
         t.reshape(B, S) for t in select_width(exceed_counts(rows), pw)
@@ -233,18 +230,17 @@ def emit_blocks(
     """Emit one coder group with a given (candidate, k) selection.
 
     Returns (payload rows [B, W] int32 bit patterns, bit_len [B] int64).
-    VERTICAL: K3's x form, one launch, except under the staged backend
-    names. Otherwise the winner's zigzag values are derived per candidate
-    over the blocks that chose it. A RICE group raises ValueError for a
-    backend name the reference's packer does not know."""
+    RICE: K5a's x form, one launch, under every packer name. VERTICAL:
+    K3's x form, one launch, except under the staged backend names, where
+    the winner's zigzag values are derived per candidate over the blocks
+    that chose it. A RICE group raises ValueError for a backend name the
+    reference's packer does not know."""
     if coder != "vertical" and backend not in RICE_PACK_BACKENDS:
         raise ValueError(f"unknown kernel backend {backend!r}")
     staged = backend == "xla" or (backend or "").startswith("pallas")
-    if coder == "vertical" and not staged:
+    if coder != "vertical":
+        return rice_pack_rows(x, history, n, choice, k, cfg)
+    if not staged:
         return vertical_emit_rows(x, history, n, choice, cfg)
-    L = x.shape[1]
     r = predict.chosen_residuals(x, history, choice, predict.candidate_coeffs(cfg))
-    z = rice.zigzag(r)
-    if coder == "vertical":
-        return encode_vertical(z, n, L, "pallas")
-    return rice_pack(z, k, n, L)
+    return encode_vertical(rice.zigzag(r), n, x.shape[1], "pallas")

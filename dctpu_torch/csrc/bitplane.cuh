@@ -20,6 +20,7 @@ constexpr int kWarps = kSub / 32;   // plane words per full row
 constexpr int kExcCap = 16;         // EXC_CAP, normative (FORMAT §2.2)
 constexpr int kRegionWords = 148;   // 128 plane + 4 position + 16 value words
 constexpr int kRegionPad = 192;     // staged row stride of one sub-block
+constexpr int kMaxSubs = 512;       // block_len < 65536: n is a u16 in the frame
 constexpr unsigned kFull = 0xffffffffu;
 
 // One 4-byte cp.async copy from device memory into shared memory; the

@@ -54,6 +54,20 @@ __device__ __forceinline__ Lpc predictor_table(int pred, const Lpc& lpc) {
   return lpc;
 }
 
+// The x-form emission kernels (vemit.cu, pack.cu) take the configuration's
+// candidates as a [C, kCandWords] table: predictor, then Q16 c0..c3.
+constexpr int kCandWords = 5;
+
+// Block's chosen candidate from that table; the clamp only keeps a bad
+// choice inside the table.
+__device__ __forceinline__ void chosen_candidate(const int32_t* cands,
+                                                 int num_cands, int choice,
+                                                 int& pred, Lpc& lpc) {
+  const int32_t* cd = cands + kCandWords * min(max(choice, 0), num_cands - 1);
+  pred = cd[0];
+  lpc = Lpc{cd[1], cd[2], cd[3], cd[4]};
+}
+
 // Stages one 128-sample row of a block and the four samples before it in
 // the warp's shared memory: st[4 + j] = x_{base + j} (0 from nb on),
 // st[4 - m] = x_{base - m}, which before the block is history[m - 1]. All

@@ -1,52 +1,69 @@
-// K9: grouped 32x32 bit-matrix transpose of [R, 128] u32 rows.
+// K9: the bit planes of [R, 128] u32 rows, in disk order.
 //
-// Replaces dctpu/kernels/transpose_pallas.py _transpose_kernel
-// (grouped_bit_transpose32). Each 32-word group of a row is one 32x32 bit
-// matrix, in the TPU butterfly's lane-reversed order: with y the group's
-// input words, output word l has bit c = bit (31 - l) of y[31 - c], so that
-// rev(K9(rev(x))) == vertical_xla.bit_transpose32(x) (rev = the group's
-// word order reversed).
+// Replaces dctpu/kernels/transpose_pallas.py:83 _transpose_kernel
+// (grouped_bit_transpose32). Each 32-word group w of a row is one 32x32 bit
+// matrix; output word p * 4 + w of the row is its plane p: bit c = bit p of
+// input word 32 w + c. That is the plane order of the VERTICAL payload
+// (vertical_xla.encode_vertical's swapaxes(bit_transpose32(zg), 2, 3)),
+// where the TPU kernel gave the groups lane-reversed, a Mosaic limit the
+// caller undid with two flips and a transpose.
 //
-// What bounds it on the card: it reads and writes 4 bytes per word with 64
-// warp-level ops per word in between, so it is bound by memory traffic.
-// Design: one warp per 32-word group, one word per lane (coalesced loads and
-// stores). A vote __ballot_sync(full, (y >> p) & 1) gives mask m_p with bit j
-// = bit p of y[j]; output lane 31 - p keeps __brev(m_p), which is the
-// reversed order above. The TPU's grouped_roll butterfly is not carried over.
+// What bounds it on the card: 4 bytes read and 4 written per word against
+// the ~15 integer ops per word of the masked-swap network (five stages of
+// 16 swaps of 6 ops on 32 words): bytes. A warp per row, lane j holding
+// word j of each group (four coalesced 4-byte loads); the five stages of
+// the masked-swap network (the masks of transpose_pallas.py and of
+// vertical_xla.bit_transpose32) run across the lanes with shfl_xor, after
+// which lane p holds plane p of the four groups: one 16-byte store in disk
+// order. A thread-per-group route (a 16-byte-load shared tile, the swaps in
+// 32 registers) measured no faster on the H100 (PERF.md §6).
 #include "bitplane.cuh"
 
 namespace dct {
 
-constexpr int kTransposeThreads = 256;  // 8 groups per thread block
+constexpr int kPlaneThreads = 256;  // eight rows per block
 
-__global__ void __launch_bounds__(kTransposeThreads)
-bit_transpose_kernel(const int32_t* __restrict__ in, int32_t* __restrict__ out,
-                     long long words) {
-  const long long i =
-      static_cast<long long>(blockIdx.x) * kTransposeThreads + threadIdx.x;
-  // words is a multiple of 32, so a warp is wholly in range or wholly out
-  if (i >= words) return;
+// Stage J of the masked-swap network with word k in lane k: the bits of
+// mask M of word k + J trade places with the bits above them in word k,
+// the partner's word by shfl_xor.
+template <int J, uint32_t M>
+__device__ __forceinline__ uint32_t swap_lanes(uint32_t a, bool upper) {
+  const uint32_t b = __shfl_xor_sync(kFull, a, J);
+  return upper ? (a & ~M) | ((b >> J) & M) : (a & M) | ((b << J) & ~M);
+}
+
+__global__ void __launch_bounds__(kPlaneThreads)
+bit_planes_kernel(const uint32_t* __restrict__ in, uint4* __restrict__ out,
+                  int num_rows) {
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kPlaneThreads / 32) +
+      (threadIdx.x >> 5);
+  if (row >= num_rows) return;  // whole warps leave together
   const int lane = threadIdx.x & 31;
-  const uint32_t y = static_cast<uint32_t>(in[i]);
-  uint32_t mine = 0;
+  const uint32_t* src = in + row * kSub;
+  uint32_t a[kWarps];
 #pragma unroll
-  for (int p = 0; p < 32; ++p) {
-    const uint32_t m = __ballot_sync(kFull, (y >> p) & 1u);
-    if (lane == 31 - p) mine = __brev(m);
+  for (int w = 0; w < kWarps; ++w) a[w] = src[32 * w + lane];
+#pragma unroll
+  for (int w = 0; w < kWarps; ++w) {
+    a[w] = swap_lanes<16, 0x0000FFFFu>(a[w], lane & 16);
+    a[w] = swap_lanes<8, 0x00FF00FFu>(a[w], lane & 8);
+    a[w] = swap_lanes<4, 0x0F0F0F0Fu>(a[w], lane & 4);
+    a[w] = swap_lanes<2, 0x33333333u>(a[w], lane & 2);
+    a[w] = swap_lanes<1, 0x55555555u>(a[w], lane & 1);
   }
-  out[i] = static_cast<int32_t>(mine);
+  out[row * 32 + lane] = make_uint4(a[0], a[1], a[2], a[3]);
 }
 
 }  // namespace dct
 
-// rows [R, 128] u32 (int32 bit patterns) -> out [R, 128].
-extern "C" int dct_bit_transpose(const void* rows, void* out, int num_rows,
-                                 void* stream) {
-  const long long words = static_cast<long long>(num_rows) * dct::kSub;
-  const unsigned grid = static_cast<unsigned>(
-      (words + dct::kTransposeThreads - 1) / dct::kTransposeThreads);
-  dct::bit_transpose_kernel<<<grid, dct::kTransposeThreads, 0,
-                              static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(rows), static_cast<int32_t*>(out), words);
+// rows [R, 128] u32 (int32 bit patterns) -> out [R, 128] disk-order planes
+// (16-byte aligned).
+extern "C" int dct_bit_planes32(const void* rows, void* out, int num_rows,
+                                void* stream) {
+  constexpr int per = dct::kPlaneThreads / 32;
+  dct::bit_planes_kernel<<<(num_rows + per - 1) / per, dct::kPlaneThreads, 0,
+                           static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(rows), static_cast<uint4*>(out), num_rows);
   return static_cast<int>(cudaGetLastError());
 }

@@ -32,8 +32,6 @@
 namespace dct {
 
 constexpr int kEmitWarps = 4;
-constexpr int kMaxSubs = 512;  // block_len < 65536: n is a u16 in the frame
-constexpr int kCandWords = 5;  // per candidate: predictor, c0..c3
 
 template <bool FROM_X>
 __global__ void __launch_bounds__(kEmitWarps * 32)
@@ -64,13 +62,7 @@ vemit_rows_kernel(const int32_t* __restrict__ src,
 
   int pred = kLpc;
   Lpc lpc{0, 0, 0, 0};
-  if constexpr (FROM_X) {
-    // the clamp only keeps a bad choice inside the table
-    const int ci = min(max(choice[blk], 0), num_cands - 1);
-    const int32_t* cd = cands + kCandWords * ci;
-    pred = cd[0];
-    lpc = Lpc{cd[1], cd[2], cd[3], cd[4]};
-  }
+  if constexpr (FROM_X) chosen_candidate(cands, num_cands, choice[blk], pred, lpc);
   bins[warp][lane] = 0;
   __syncwarp();
 

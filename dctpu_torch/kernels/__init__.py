@@ -4,12 +4,13 @@ and the plain-torch stages around them.
   select_bp    K1, K2  exact adaptive-selection totals
   vemit        K3      VERTICAL emission into the payload rows
   vdec         K4      VERTICAL decode
-  pack         K5a     RICE bit packer
+  pack         K5a     RICE payload rows (from the raw samples, or from z)
   unpack       K5b     RICE bit unpacker
   rice_totals  K6      exact RICE totals per k (coder="rice" selection)
   select_reduce K7     K2's totals on K2's code (backend="reduce")
   exc_extract  K8      VERTICAL exceptions at given widths (backend="pallas")
-  transpose    K9      grouped 32x32 bit transpose (backend="pallas")
+  transpose    K9      bit planes of 32-word groups, disk order (backend="pallas")
   reconstruct  R       unzigzag + predictor inverse (decode)
   vertical, ragged: plain torch (XLA code on the TPU)
+  args: the kernel arguments several wrappers share
 """

@@ -50,10 +50,11 @@ SIGNATURES = {
     "dct_rice_totals_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dct_rice_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
+    "dct_rice_pack_rows": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P),
     "dct_rice_unpack_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),
     "dct_exc_extract": (_P, _P, _P, _P, _I, _P),
-    "dct_bit_transpose": (_P, _P, _I, _P),
+    "dct_bit_planes32": (_P, _P, _I, _P),
     "dct_reconstruct": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
 }
 

@@ -1,11 +1,19 @@
-"""K5a: RICE bit packer, zigzag values -> dense u32 payload rows.
+"""K5a: RICE bit packer, one dense u32 payload row per block.
 
 The counterpart of ``dctpu/kernels/attic/pack_pallas.py`` (``pack_pallas``,
 with the codewords, sync table and bit_len its wrapper formed in XLA
-around the kernel). The CUDA kernel is in ``dctpu_torch/csrc/pack.cu``;
-it forms each codeword itself from z and k.
+around the kernel). The CUDA kernel (``dctpu_torch/csrc/pack.cu``) forms
+each codeword itself and writes the rows and bit lengths of
+``encode.emit_blocks(..., coder="rice")`` in one launch per coder group,
+in two forms:
 
-The plain twin is ``rice.codewords`` followed by :func:`pack`, the
+  * :func:`rice_pack_rows`, the x form: it derives each block's chosen
+    candidate's residuals from the raw samples, as K3's x form does; every
+    RICE emission runs it;
+  * :func:`rice_pack`, the z form, on zigzag values: the reference's
+    ``kernels/api.pack`` contract.
+
+The z form's plain twin is ``rice.codewords`` followed by :func:`pack`, the
 ``dctpu/kernels/pack_xla.py`` formulation:
 
   1. exclusive prefix sum of the code lengths: every sample's bit offset;
@@ -15,9 +23,9 @@ The plain twin is ``rice.codewords`` followed by :func:`pack`, the
   4. contributions of different codewords hold disjoint bits, so an
      ``index_add_`` into int64 words equals the OR.
 
-``rice_pack`` runs the twin for tensors on the CPU and launches the kernel
-for tensors on a CUDA device; ``rice_pack.launches`` counts the kernel
-launches.
+Each wrapper runs its plain torch twin for tensors on the CPU and launches
+the kernel for tensors on a CUDA device; its ``launches`` attribute counts
+the kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +35,7 @@ from typing import Tuple
 import torch
 
 from dctpu_torch._bits import MASK32, to_i32
-from dctpu_torch.codec.rice import codewords
+from dctpu_torch.codec import predict, rice
 from dctpu_torch.constants import (
     MAX_CODE_BITS,
     SUB_BLOCK,
@@ -35,6 +43,7 @@ from dctpu_torch.constants import (
     sync_words,
 )
 from dctpu_torch.kernels import _build
+from dctpu_torch.kernels.args import candidate_table, check_x, rows_out
 
 
 def padded_words(block_len: int) -> int:
@@ -91,7 +100,7 @@ def rice_pack_plain(z, k, n, block_len: int):
     """Plain twin of K5a: the codewords, then :func:`pack`."""
     L = z.shape[1]
     valid = torch.arange(L, device=z.device)[None, :] < n.to(torch.int64)[:, None]
-    code, length = codewords(z, k.to(torch.int64)[:, None])
+    code, length = rice.codewords(z, k.to(torch.int64)[:, None])
     return pack(code, length, valid, block_len)
 
 
@@ -101,8 +110,8 @@ def rice_pack(
     n: torch.Tensor,  # [B] valid counts
     block_len: int,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """K5a: (payload [B, padded_words(L)] int32 bit patterns incl. sync
-    table, bit_len [B] int64) -- the contract of :func:`pack`."""
+    """K5a, z form: (payload [B, padded_words(L)] int32 bit patterns incl.
+    sync table, bit_len [B] int64) -- the contract of :func:`pack`."""
     if z.device.type == "cpu":
         return rice_pack_plain(z, k, n, block_len)
     if z.device.type != "cuda":
@@ -113,13 +122,11 @@ def rice_pack(
     B, L = z.shape
     if L != block_len or k.shape != (B,) or n.shape != (B,):
         raise ValueError("rice_pack: expects z [B, block_len], k [B], n [B]")
-    W = padded_words(block_len)
-    payload = torch.empty((B, W), dtype=torch.int32, device=z.device)
-    bit_len = torch.empty(B, dtype=torch.int64, device=z.device)
+    payload, bit_len = rows_out(B, L, padded_words(L), z.device)
     if B:
         err = _build.library().dct_rice_pack(
             z.data_ptr(), k.data_ptr(), n.data_ptr(), payload.data_ptr(),
-            bit_len.data_ptr(), B, L, W, _build.stream_of(z),
+            bit_len.data_ptr(), B, L, payload.shape[1], _build.stream_of(z),
         )
         _build.check(err, "dct_rice_pack")
         rice_pack.launches += 1
@@ -127,3 +134,52 @@ def rice_pack(
 
 
 rice_pack.launches = 0
+
+
+def rice_pack_rows_plain(x, history, n, choice, k, cfg):
+    """Plain twin of K5a's x form: each block's chosen candidate's zigzag
+    residuals, then the z form's twin."""
+    r = predict.chosen_residuals(x, history, choice, predict.candidate_coeffs(cfg))
+    return rice_pack_plain(rice.zigzag(r), k, n, x.shape[1])
+
+
+def rice_pack_rows(
+    x: torch.Tensor,        # [B, L] int32 raw samples (garbage past n)
+    history: torch.Tensor,  # [B, 4] int32 pre-block history
+    n: torch.Tensor,        # [B] valid counts
+    choice: torch.Tensor,   # [B] index into cfg.candidates()
+    k: torch.Tensor,        # [B] Rice k, in [0, 30]
+    cfg,                    # the CodecConfig whose candidates choice indexes
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5a, x form: the RICE payload rows of each block's chosen candidate
+    at its k, the residuals derived from x in the kernel.
+
+    Returns (payload [B, padded_words(L)] int32 bit patterns incl. sync
+    table, bit_len [B] int64). Raises ValueError for an LPC coefficient
+    outside int32, the frame's type."""
+    table = candidate_table(cfg, x.device)
+    if x.device.type == "cpu":
+        return rice_pack_rows_plain(x, history, n, choice, k, cfg)
+    if x.device.type != "cuda":
+        raise ValueError(f"rice_pack_rows: unsupported device {x.device}")
+    n = check_x("rice_pack_rows", x, history, n, cfg.block_len)
+    choice = choice.to(torch.int32).contiguous()
+    k = k.to(torch.int32).contiguous()
+    _build.check_tensors("rice_pack_rows", x, choice, k)
+    B, L = x.shape
+    if choice.shape != (B,) or k.shape != (B,):
+        raise ValueError("rice_pack_rows: expects choice [B], k [B]")
+    payload, bit_len = rows_out(B, L, padded_words(L), x.device)
+    if B:
+        err = _build.library().dct_rice_pack_rows(
+            x.data_ptr(), history.data_ptr(), n.data_ptr(), k.data_ptr(),
+            choice.data_ptr(), table.data_ptr(), table.shape[0],
+            payload.data_ptr(), bit_len.data_ptr(), B, L, payload.shape[1],
+            _build.stream_of(x),
+        )
+        _build.check(err, "dct_rice_pack_rows")
+        rice_pack_rows.launches += 1
+    return payload, bit_len
+
+
+rice_pack_rows.launches = 0

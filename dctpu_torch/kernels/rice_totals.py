@@ -30,7 +30,7 @@ from dctpu_torch.codec import rice
 from dctpu_torch.codec.predict import residuals_for_candidate
 from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC, MAX_CODE_BITS
 from dctpu_torch.kernels import _build
-from dctpu_torch.kernels.select_bp import _check_x, _lpc_coeffs
+from dctpu_torch.kernels.args import check_x, lpc_coeffs
 
 
 def _check_args(block_len: int, k_max: int) -> None:
@@ -107,7 +107,7 @@ def rice_totals_xbp(
         return rice_totals_xbp_plain(x, history, n, block_len, k_max)
     if x.device.type != "cuda":
         raise ValueError(f"rice_totals_xbp: unsupported device {x.device}")
-    n = _check_x("rice_totals_xbp", x, history, n, block_len)
+    n = check_x("rice_totals_xbp", x, history, n, block_len)
     B, L = x.shape
     out = torch.empty((B, 2, k_max + 1), dtype=torch.int32, device=x.device)
     if B:
@@ -141,12 +141,12 @@ def rice_totals_lpc(
     accumulator, arithmetic >> 16, as ``predict.residuals_for_candidate``).
     Raises ValueError for a coefficient outside int32, the frame's type."""
     _check_args(block_len, k_max)
-    coeffs = _lpc_coeffs(coeffs)
+    coeffs = lpc_coeffs(coeffs)
     if x.device.type == "cpu":
         return rice_totals_lpc_plain(x, history, n, coeffs, block_len, k_max)
     if x.device.type != "cuda":
         raise ValueError(f"rice_totals_lpc: unsupported device {x.device}")
-    n = _check_x("rice_totals_lpc", x, history, n, block_len)
+    n = check_x("rice_totals_lpc", x, history, n, block_len)
     B, L = x.shape
     out = torch.empty((B, k_max + 1), dtype=torch.int32, device=x.device)
     if B:

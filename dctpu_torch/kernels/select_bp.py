@@ -27,6 +27,7 @@ from dctpu_torch.codec.predict import residuals_for_candidate
 from dctpu_torch.codec.rice import zigzag
 from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC, MAX_CODE_BITS
 from dctpu_torch.kernels import _build
+from dctpu_torch.kernels.args import check_x, lpc_coeffs
 from dctpu_torch.kernels.vertical import vertical_total_words
 
 
@@ -123,25 +124,6 @@ def adaptive_totals_bp(
 adaptive_totals_bp.launches = 0
 
 
-def _check_x(name, x, history, n, block_len):
-    """The raw-sample forms' kernel arguments; returns n as int32."""
-    n = n.to(torch.int32).contiguous()
-    _build.check_tensors(name, x, history, n)
-    B, L = x.shape
-    if L != block_len or n.shape != (B,) or history.shape != (B, 4):
-        raise ValueError(f"{name}: expects x [B, block_len], history [B, 4], n [B]")
-    return n
-
-
-def _lpc_coeffs(coeffs) -> tuple:
-    """Four Q16 coefficients as ints; ValueError unless each is int32, the
-    frame's type."""
-    coeffs = tuple(int(c) for c in coeffs)
-    if len(coeffs) != 4 or not all(-(2**31) <= c < 2**31 for c in coeffs):
-        raise ValueError(f"LPC coefficients must be four int32 values, got {coeffs}")
-    return coeffs
-
-
 def adaptive_totals_lpc_plain(x, history, n, coeffs, block_len: int, k_max: int):
     """Plain twin of K2's LPC form: K2's twin on the candidate's zigzag
     residuals."""
@@ -166,12 +148,12 @@ def adaptive_totals_lpc(
     Returns (rice_totals [B, k_max+1] int32, vertical_words [B] int32).
     Raises ValueError for a coefficient outside int32, the frame's type."""
     _check_args(block_len, k_max)
-    coeffs = _lpc_coeffs(coeffs)
+    coeffs = lpc_coeffs(coeffs)
     if x.device.type == "cpu":
         return adaptive_totals_lpc_plain(x, history, n, coeffs, block_len, k_max)
     if x.device.type != "cuda":
         raise ValueError(f"adaptive_totals_lpc: unsupported device {x.device}")
-    n = _check_x("adaptive_totals_lpc", x, history, n, block_len)
+    n = check_x("adaptive_totals_lpc", x, history, n, block_len)
     B, L = x.shape
     out = torch.empty((B, k_max + 2), dtype=torch.int32, device=x.device)
     if B:
@@ -218,7 +200,7 @@ def adaptive_totals_xbp(
         return adaptive_totals_xbp_plain(x, history, n, block_len, k_max)
     if x.device.type != "cuda":
         raise ValueError(f"adaptive_totals_xbp: unsupported device {x.device}")
-    n = _check_x("adaptive_totals_xbp", x, history, n, block_len)
+    n = check_x("adaptive_totals_xbp", x, history, n, block_len)
     B, L = x.shape
     out = torch.empty((B, 2, k_max + 2), dtype=torch.int32, device=x.device)
     if B:

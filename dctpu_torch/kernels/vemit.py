@@ -30,18 +30,16 @@ from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import predict, rice
 from dctpu_torch.constants import EXC_CAP, SUB_BLOCK, subs_per_block
 from dctpu_torch.kernels import _build
-from dctpu_torch.kernels.select_bp import _check_x, _lpc_coeffs
+from dctpu_torch.kernels.args import candidate_table, check_x, rows_out
 from dctpu_torch.kernels.vertical import (
     assemble_rows,
-    bit_transpose32,
+    bit_planes32_plain,
     exceed_counts,
     padded_words_vertical,
     plane_word_counts,
     select_width,
     sub_rows,
 )
-
-MAX_SUBS = 512  # the kernel's sync table: block_len < 65536 (n is a u16)
 
 
 def _pack_positions(cpos: torch.Tensor) -> torch.Tensor:
@@ -68,7 +66,7 @@ def vertical_emit(z: torch.Tensor, n: torch.Tensor, block_len: int):
     b, words, n_exc, e = select_width(exceed_counts(rows), pw)
 
     # plane (p, w) bit c = bit p of sample 32w + c; stored p-major (p*4 + w)
-    planes = bit_transpose32(rows.reshape(R, 4, 32)).transpose(1, 2)
+    planes = bit_planes32_plain(rows)
 
     # exceptions: high bits at width b, placed at their rank
     high = torch.where(
@@ -84,7 +82,7 @@ def vertical_emit(z: torch.Tensor, n: torch.Tensor, block_len: int):
     cpos.scatter_(1, slot, torch.where(is_exc, lane, 0))
     sh = (B, S)
     return (
-        to_i32(planes.reshape(sh + (4 * 32,))),
+        planes.reshape(sh + (4 * 32,)),
         *(t.to(torch.int32).reshape(sh) for t in (b, words, n_exc, e)),
         to_i32(_pack_positions(cpos[:, :EXC_CAP])).reshape(sh + (4,)),
         to_i32(cval[:, :EXC_CAP]).reshape(sh + (EXC_CAP,)),
@@ -97,16 +95,6 @@ def vertical_emit_rows_z_plain(z: torch.Tensor, n: torch.Tensor, block_len: int)
     planes, b, words, n_exc, e, pos_words, vals = vertical_emit(z, n, block_len)
     payload = assemble_rows(planes, b, n_exc, e, pos_words, vals, block_len)
     return payload, 32 * words.to(torch.int64).sum(1)
-
-
-def _rows_out(B: int, block_len: int, device):
-    if subs_per_block(block_len) > MAX_SUBS:
-        raise ValueError(f"block_len {block_len} too large for the sync table")
-    return (
-        torch.empty((B, padded_words_vertical(block_len)), dtype=torch.int32,
-                    device=device),
-        torch.empty(B, dtype=torch.int64, device=device),
-    )
 
 
 def vertical_emit_rows_z(z: torch.Tensor, n: torch.Tensor, block_len: int):
@@ -122,7 +110,7 @@ def vertical_emit_rows_z(z: torch.Tensor, n: torch.Tensor, block_len: int):
     B, L = z.shape
     if L != block_len or n.shape != (B,):
         raise ValueError("vertical_emit_rows_z: expects z [B, block_len], n [B]")
-    payload, bit_len = _rows_out(B, L, z.device)
+    payload, bit_len = rows_out(B, L, padded_words_vertical(L), z.device)
     if B:
         err = _build.library().dct_vemit_rows_z(
             z.data_ptr(), n.data_ptr(), payload.data_ptr(), bit_len.data_ptr(),
@@ -156,23 +144,22 @@ def vertical_emit_rows(
     Returns (payload [B, SW + S*REGION_PAD] int32 bit patterns, bit_len [B]
     int64). Raises ValueError for an LPC coefficient outside int32, the
     frame's type."""
-    cands = [(p, _lpc_coeffs(c)) for p, c in predict.candidate_coeffs(cfg)]
+    table = candidate_table(cfg, x.device)
     if x.device.type == "cpu":
         return vertical_emit_rows_plain(x, history, n, choice, cfg)
     if x.device.type != "cuda":
         raise ValueError(f"vertical_emit_rows: unsupported device {x.device}")
-    n = _check_x("vertical_emit_rows", x, history, n, cfg.block_len)
+    n = check_x("vertical_emit_rows", x, history, n, cfg.block_len)
     choice = choice.to(torch.int32).contiguous()
+    _build.check_tensors("vertical_emit_rows", x, choice)
     B, L = x.shape
     if choice.shape != (B,):
         raise ValueError("vertical_emit_rows: expects choice [B]")
-    table = torch.tensor([[p, *c] for p, c in cands], dtype=torch.int32,
-                         device=x.device)
-    payload, bit_len = _rows_out(B, L, x.device)
+    payload, bit_len = rows_out(B, L, padded_words_vertical(L), x.device)
     if B:
         err = _build.library().dct_vemit_rows(
             x.data_ptr(), history.data_ptr(), n.data_ptr(), choice.data_ptr(),
-            table.data_ptr(), len(cands), payload.data_ptr(), bit_len.data_ptr(),
+            table.data_ptr(), table.shape[0], payload.data_ptr(), bit_len.data_ptr(),
             B, L, _build.stream_of(x),
         )
         _build.check(err, "dct_vemit_rows")

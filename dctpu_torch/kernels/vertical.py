@@ -65,6 +65,15 @@ def bit_transpose32(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([(((u >> a) & 1) << c).sum(-1) for a in range(32)], dim=-1)
 
 
+def bit_planes32_plain(rows: torch.Tensor) -> torch.Tensor:
+    """The bit planes of each 32-word group, K9's plain twin: [R, 128] u32
+    words (int32 bit patterns or int64 values) -> [R, 128] int32, word
+    p*4 + w = plane p of group w."""
+    R = rows.shape[0]
+    planes = bit_transpose32(rows.reshape(R, SUB_BLOCK // 32, 32))
+    return to_i32(planes.transpose(1, 2).reshape(R, SUB_BLOCK))
+
+
 def exceed_counts(rows: torch.Tensor) -> torch.Tensor:
     """[R, 128] u32 rows (zero where invalid) -> E [R, 33] int64,
     E[b] = #{samples with bit length > b}: a bit-length histogram, summed
@@ -72,8 +81,8 @@ def exceed_counts(rows: torch.Tensor) -> torch.Tensor:
     R = rows.shape[0]
     hist = torch.zeros((R, 34), dtype=torch.int64, device=rows.device)
     hist.scatter_add_(1, bitlen(rows), torch.ones_like(rows))
-    above = hist.flip(1).cumsum(1).flip(1)  # above[b] = #{bitlen >= b}
-    return above[:, 1:]
+    # all samples less those of bit length <= b
+    return (hist.sum(1, keepdim=True) - hist.cumsum(1))[:, :33]
 
 
 def select_width(E: torch.Tensor, pw: torch.Tensor):

@@ -235,10 +235,11 @@ def test_wrappers_refuse_other_devices():
         lambda: rice_totals.rice_totals_xbp(z, h, n, 256, 24),
         lambda: rice_totals.rice_totals_lpc(z, h, n, (1, 2, 3, 4), 256, 24),
         lambda: pack.rice_pack(z, n, n, 256),
+        lambda: pack.rice_pack_rows(z, h, n, n, n, CodecConfig(block_len=256)),
         lambda: unpack.rice_unpack_words(words, n, n, n, n, 256),
         lambda: select_reduce.adaptive_totals_reduce(z, n, 256, 24),
         lambda: exc_extract.exc_extract(z.reshape(2, 2, 128), n.reshape(2, 1)),
-        lambda: transpose.grouped_bit_transpose32(z.reshape(4, 128)),
+        lambda: transpose.bit_planes32(z.reshape(4, 128)),
     ]
     for call in calls:
         with pytest.raises(ValueError, match="unsupported device"):

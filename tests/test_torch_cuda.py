@@ -1,6 +1,6 @@
-"""The CUDA kernels K1-K9 and R (and the x forms of K2, K3 and K6, and the
-words forms of K4 and K5b) against their plain twins, on the card, and the
-launches of the round trips.
+"""The CUDA kernels K1-K9 and R (and the x forms of K2, K3, K5a and K6, the
+words forms of K4 and K5b, and K9's disk-order planes) against their plain
+twins, on the card, and the launches of the round trips.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -92,6 +92,10 @@ def test_kernels_match_twins_on_card(cuda, L):
 TABLES = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP]
 
 
+def _refuse(*args, **kwargs):
+    raise AssertionError("a plain stage ran on the card")
+
+
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
 def test_emit_rows_and_reconstruct_match_twins_on_card(cuda, L):
     """K3 in both forms, every candidate chosen (the wrap table too), and R
@@ -118,9 +122,19 @@ def test_emit_rows_and_reconstruct_match_twins_on_card(cuda, L):
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
 def test_rice_kernels_match_twins_on_card(cuda, L):
-    """K6 (its three forms), K5a and K5b; 12000 takes K5a's device-memory
-    row path."""
+    """K6 (its three forms), K5a (both forms: the x form with every
+    candidate chosen, the wrap table too, at every k in 0..30) and K5b;
+    12000 takes K5a's device-memory row path."""
     z, x, h, n, k = (t.to(cuda) for t in _inputs(L, 9))
+    B = x.shape[0]
+    h[::5] = torch.tensor([-(2**31), 2**31 - 1, -(2**31), 2**31 - 1],
+                          dtype=torch.int32)
+    cfg = CodecConfig(block_len=L, lpc_tables=tuple(LpcTable(4, c) for c in TABLES))
+    blocks = torch.arange(B, device=cuda)
+    choice = (blocks % len(cfg.candidates())).to(torch.int32)
+    k31 = (blocks % 31).to(torch.int32)
+    _same(pack.rice_pack_rows(x, h, n, choice, k31, cfg),
+          pack.rice_pack_rows_plain(x, h, n, choice, k31, cfg))
     _same((rice_totals.rice_totals(z, n, L, 24),),
           (rice_totals.rice_totals_plain(z, n, L, 24),))
     _same((rice_totals.rice_totals_xbp(x, h, n, L, 24),),
@@ -135,6 +149,20 @@ def test_rice_kernels_match_twins_on_card(cuda, L):
     start = torch.cumsum(wc, 0) - wc
     _same((unpack.rice_unpack_words(flat, start, wc, k, n, L),),
           (unpack.rice_unpack_words_plain(flat, start, wc, k, n, L),))
+
+
+def test_emit_rows_refuse_host_arguments_on_card(cuda):
+    """The x-form emissions refuse a per-block argument left on the host
+    rather than hand its pointer to the kernel."""
+    _, x, h, n, k = (t.to(cuda) for t in _inputs(300, 5))
+    cfg = CodecConfig(block_len=300)
+    choice = torch.zeros(x.shape[0], dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="one device"):
+        pack.rice_pack_rows(x, h, n, choice, k.cpu(), cfg)
+    with pytest.raises(ValueError, match="one device"):
+        pack.rice_pack_rows(x, h, n, choice.cpu(), k, cfg)
+    with pytest.raises(ValueError, match="one device"):
+        vemit.vertical_emit_rows(x, h, n, choice.cpu(), cfg)
 
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
@@ -226,31 +254,44 @@ def test_backend_kernels_match_twins_on_card(cuda, L):
     b[0], b[1] = 0, 32
     _same(exc_extract.exc_extract(zs, b), exc_extract.exc_extract_plain(zs, b))
     rows = zs.reshape(-1, 128)
-    _same((transpose.grouped_bit_transpose32(rows),),
-          (transpose.grouped_bit_transpose32_plain(rows),))
+    _same((transpose.bit_planes32(rows),), (transpose.bit_planes32_plain(rows),))
+    flat = rows.reshape(-1)  # rows 4 bytes off a 16-byte boundary
+    off = flat[1:1 + flat.numel() - 128].reshape(-1, 128)
+    _same((transpose.bit_planes32(off),), (transpose.bit_planes32_plain(off),))
 
 
 def test_backend_paths_on_card(cuda):
     """backend="pallas" and "xla" run K9 and K8 instead of K3, the other
-    kernels as by default (never a plain twin on the card), and give the
-    default frame; backend="reduce" selects with K7 alone and raises at
-    the RICE group, as the reference does."""
+    kernels as by default (never a plain twin on the card, and no flip in
+    the staged emission), and give the default frame; backend="reduce"
+    selects with K7 alone and raises at the RICE group, as the reference
+    does."""
     cfg = CodecConfig(block_len=1000, coder="adaptive")
     streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
                                       cumulative_frac=0.5)
     want = write_frame(api.compress(streams, cfg, ids, cads, device=cuda))
     assert set(read_frame(want).blocks.coder_arr().tolist()) == {0, 1}
     counted = (vemit.vertical_emit_rows, exc_extract.exc_extract,
-               transpose.grouped_bit_transpose32, select_bp.adaptive_totals_xbp,
-               select_bp.adaptive_totals_lpc, pack.rice_pack)
+               transpose.bit_planes32, select_bp.adaptive_totals_xbp,
+               select_bp.adaptive_totals_lpc, pack.rice_pack_rows, pack.rice_pack)
+    staged = encode._emit_staged
+
+    def staged_without_flip(*args):
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(torch.Tensor, "flip", _refuse)
+            mp.setattr(torch, "flip", _refuse)
+            return staged(*args)
+
     for backend in ("pallas", "xla"):
         for fn in counted:
             fn.launches = 0
-        got = write_frame(api.compress(streams, cfg, ids, cads, device=cuda,
-                                       backend=backend))
+        with pytest.MonkeyPatch.context() as mp:
+            mp.setattr(encode, "_emit_staged", staged_without_flip)
+            got = write_frame(api.compress(streams, cfg, ids, cads, device=cuda,
+                                           backend=backend))
         assert got == want
         assert [fn.launches for fn in counted] == [
-            0, 1, 1, 1, len(cfg.candidates()) - 2, 1]
+            0, 1, 1, 1, len(cfg.candidates()) - 2, 1, 0]
         out = api.decompress(read_frame(got), device=cuda)
         assert all(np.array_equal(a, b) for a, b in zip(streams, out))
 
@@ -272,25 +313,22 @@ def test_backend_paths_on_card(cuda):
 @pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
 def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     """R once per coder group in every decode, K3's x form and K4 once per
-    VERTICAL group, K5b once per RICE group; the plain stages they replace
-    (the staging of the decode's rows among them) never run on the card."""
+    VERTICAL group, K5a's x form and K5b once per RICE group; the plain
+    stages they replace (the winner's residuals of either emission and the
+    staging of the decode's rows among them) never run on the card."""
     cfg = CodecConfig(block_len=1000, coder=coder)
     streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
                                       cumulative_frac=0.5)
 
-    def refuse(*args, **kwargs):
-        raise AssertionError("a plain stage ran on the card")
-
-    monkeypatch.setattr(encode, "assemble_rows", refuse)
-    monkeypatch.setattr(vemit, "assemble_rows", refuse)
-    monkeypatch.setattr(predict, "reconstruct_lpc", refuse)
-    monkeypatch.setattr(ragged, "stage_vertical", refuse)
-    monkeypatch.setattr(ragged, "pad_payload", refuse)
-    if coder == "vertical":  # the rice emission still derives z in torch
-        monkeypatch.setattr(predict, "chosen_residuals", refuse)
+    monkeypatch.setattr(encode, "assemble_rows", _refuse)
+    monkeypatch.setattr(vemit, "assemble_rows", _refuse)
+    monkeypatch.setattr(predict, "reconstruct_lpc", _refuse)
+    monkeypatch.setattr(predict, "chosen_residuals", _refuse)
+    monkeypatch.setattr(ragged, "stage_vertical", _refuse)
+    monkeypatch.setattr(ragged, "pad_payload", _refuse)
     counted = (reconstruct.reconstruct, vemit.vertical_emit_rows,
                vemit.vertical_emit_rows_z, vdec.decode_vertical_words,
-               unpack.rice_unpack_words)
+               unpack.rice_unpack_words, pack.rice_pack_rows, pack.rice_pack)
     for fn in counted:
         fn.launches = 0
     frame = api.compress(streams, cfg, ids, cads, device=cuda)
@@ -299,5 +337,5 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     out = api.decompress(read_frame(write_frame(frame)), device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
     assert [fn.launches for fn in counted] == [groups, vert, 0, vert,
-                                               groups - vert]
+                                               groups - vert, groups - vert, 0]
     assert groups == (2 if coder == "adaptive" else 1)

@@ -1,8 +1,10 @@
-"""K8 and K9 plain twins vs the JAX reference.
+"""K8's plain twin and K9's lane-reversed twin vs the JAX reference.
 
 The reference kernels run in interpret mode on the CPU and are held,
 with the twins, against the reference's XLA formulations
-(exc_extract_xla, bit_transpose32). Integer codec: exact equality.
+(exc_extract_xla, bit_transpose32). K9's card contract, the planes in
+disk order, is tested in test_torch_pack_rows.py. Integer codec: exact
+equality.
 """
 
 import jax.numpy as jnp
@@ -69,12 +71,14 @@ def test_k9_twin_matches_pallas(rng, R):
     x = _words(rng, R)
     xr = np.ascontiguousarray(x[..., ::-1].reshape(R, 128))
     want = np.asarray(ref_k9(jnp.asarray(xr), interpret=True, tr=64))
-    got = transpose.grouped_bit_transpose32(torch.from_numpy(xr.view(np.int32)))
+    got = transpose.grouped_bit_transpose32_plain(
+        torch.from_numpy(xr.view(np.int32))
+    )
     assert got.shape == (R, 128) and got.dtype == torch.int32
     assert np.array_equal(got.numpy().view(np.uint32), want)
     # rev(K9(rev(x))) == bit_transpose32(x), and twice is the identity
     out = got.numpy().view(np.uint32).reshape(R, 4, 32)[..., ::-1]
     assert np.array_equal(out, np.asarray(ref_bit_transpose32(jnp.asarray(x))))
-    back = transpose.grouped_bit_transpose32(got).numpy().view(np.uint32)
+    back = transpose.grouped_bit_transpose32_plain(got).numpy().view(np.uint32)
     assert np.array_equal(back, xr)
     assert not got[0].any() and (got[1] == -1).all()
