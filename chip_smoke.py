@@ -54,15 +54,35 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      K5a's x form on their RICE groups from the corpus's blocks (the main
      path's kernel times, the adaptive RICE group's 1351 blocks beside
      the rice path's 8192);
-  4. builds the C++ oracle and checks, for each coder, that its frame of the
+  4. drives the distribution layer on the same corpus: compress_sharded ->
+     decompress_sharded of each coder over make_mesh() (the one card, in
+     chunks of 2048 blocks) and of the adaptive coder over [cuda:0,
+     cuda:0] (two shards, four chunks), each frame byte-identical to the
+     coder's default frame and each round trip bit-exact, with the
+     counters set to 0 around each: every kernel of the coder's default
+     path once per block range and coder group, no plain stage; then
+     compress_multihost with two processes on the card, 8 streams each,
+     under the "allgather" and the "files" gather, for the rice and the
+     adaptive config (process 0's frame byte-identical to the rice frame,
+     which is the reference's frame for both), each process with its own
+     time limit; dryrun_multichip over every card; an EncodeJob of two
+     parts whose merge equals the adaptive frame, and one RunMetrics line
+     per coder; and the host feed: build_blocks' flat path against its
+     per-stream loop over mean stream lengths 96-4096 at block lengths
+     128 and 4096 (arrays equal, host times, the path build_blocks
+     takes), and the corpus cut into 16384 streams of 2048 samples (both
+     paths equal, decompress_flat equal to the input);
+  5. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
      port's frame back to the input;
-  5. runs the port's CLI (``python3 -m dctpu_torch.cli.main verify``) on the
-     card as a subprocess;
-  6. prints one JSON line of the kernels, then the result line.
+  6. runs the port's CLI (``python3 -m dctpu_torch.cli.main verify``, with
+     the rice coder and with ``--sharded``) on the card as a subprocess;
+  7. prints one JSON line of the kernels, then the result line.
 
 Any failure exits non-zero. Without a CUDA device it fails; it never runs
-on the CPU instead.
+on the CPU instead. ``chip_smoke.py --multihost-worker SPEC`` is one
+process of a compress_multihost run (see multihost_worker); the tests
+start it on the CPU.
 """
 
 from __future__ import annotations
@@ -80,6 +100,9 @@ ROOT = Path(__file__).resolve().parent
 BENCH_BLOCKS, BENCH_LEN = 8192, 4096
 SHAPES = ((256, 4096), (BENCH_BLOCKS, BENCH_LEN), (256, 200), (32, 12000))
 K_MAX = 24
+# the bench corpus: 16 streams, 8192 blocks x 4096 int32 = 128 MiB in all
+CORPUS = {"num_streams": 16, "samples_per_stream": BENCH_BLOCKS * BENCH_LEN // 16,
+          "seed": 123, "mixed_cadence": True, "cumulative_frac": 0.25}
 CODERS = ("adaptive", "rice", "vertical")
 WRAP_COEFFS = (-(2**31),) * 4  # 4 * 2**62 on -2**31 samples: wraps int64
 # H100 SXM peaks (NVIDIA's data sheet): HBM bytes/s, and the float32
@@ -736,7 +759,7 @@ def path_name(coder, backend) -> str:
 
 def run_path(dev, coder, streams, ids, cads, backend=None):
     """Phase 3, one coder and backend: the 128 MiB round trip. Returns
-    (frame bytes, launches per kernel)."""
+    (frame bytes, launches per kernel, compress+write_frame seconds)."""
     import numpy as np
     import torch
 
@@ -833,7 +856,7 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     if cfg.coder == "adaptive" and (launches["K1"], launches["K2-lpc"]) != (1, n_lpc):
         fail(f"K1 launched {launches['K1']} times (want 1), K2's LPC form "
              f"{launches['K2-lpc']} (want {n_lpc})")
-    return data, launches
+    return data, launches, t1 - t0
 
 
 def reduce_select_check(dev, streams) -> dict:
@@ -959,7 +982,8 @@ def oracle_check(streams, ids, cads, frames) -> None:
 
 
 def cli_check() -> None:
-    """Phase 5: the port's CLI verifies a small DCR1 file on the card."""
+    """Phase 5: the port's CLI verifies a small DCR1 file on the card, with
+    the rice coder and with the default coder over ``--sharded``."""
     from dctpu_torch.corpus import synth_corpus
     from dctpu_torch.format import write_raw
 
@@ -967,16 +991,350 @@ def cli_check() -> None:
     with tempfile.TemporaryDirectory() as tmp:
         src = Path(tmp) / "in.dcr"
         src.write_bytes(write_raw(streams, ids, cads))
-        res = subprocess.run(
-            [sys.executable, "-m", "dctpu_torch.cli.main", "verify", str(src),
-             "--coder", "rice"],
-            cwd=ROOT, capture_output=True, text=True, timeout=300,
-            env={**os.environ, "PYTHONPATH": str(ROOT)},
-        )
-    print(f"cli: verify --coder rice exit {res.returncode}: "
-          f"{res.stderr.strip()[-200:]}", flush=True)
-    if res.returncode != 0:
-        fail("the CLI's verify failed on the card")
+        for flags in (["--coder", "rice"], ["--sharded"]):
+            res = subprocess.run(
+                [sys.executable, "-m", "dctpu_torch.cli.main", "verify",
+                 str(src), *flags],
+                cwd=ROOT, capture_output=True, text=True, timeout=300,
+                env={**os.environ, "PYTHONPATH": str(ROOT)},
+            )
+            print(f"cli: verify {' '.join(flags)} exit {res.returncode}: "
+                  f"{res.stderr.strip()[-200:]}", flush=True)
+            if res.returncode != 0:
+                fail(f"the CLI's verify {' '.join(flags)} failed on the card")
+
+
+# ------------------------------------------------ the distribution layer
+
+
+def range_launches(coder, coders, ranges, n_lpc) -> dict:
+    """The launches of a sharded round trip whose encode and decode each
+    cover these block ranges, one pass per range: every kernel of the
+    coder's default path once per range and coder group (K2 and K6 once
+    per LPC candidate too, K6-xbp once), and none of the z forms, K7, K8
+    or K9."""
+    rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
+    vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
+    r = len(ranges)
+    adaptive, rice_sel = coder == "adaptive", coder == "rice"
+    return {
+        "K1": r * adaptive, "K2": r * n_lpc * adaptive,
+        "K2-lpc": r * n_lpc * adaptive, "K3": vert, "K3-z": 0, "K4": vert,
+        "K5a": rice, "K5a-z": 0, "K5b": rice, "K6": r * (1 + n_lpc) * rice_sel,
+        "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
+        "K8": 0, "K9": 0, "R": rice + vert,
+    }
+
+
+def run_sharded(coder, streams, ids, cads, mesh, chunk_blocks, want) -> dict:
+    """Phase 3b, one sharded round trip of the 128 MiB corpus over mesh:
+    compress_sharded -> write_frame -> read_frame -> decompress_sharded
+    with the launch counters set to 0 just before and read just after.
+    The frame must equal the default path's (want), the round trip be
+    bit-exact, the launches those of range_launches, and no plain stage
+    run. Returns the launches."""
+    import numpy as np
+    import torch
+
+    from dctpu_torch.codec.api import block_ranges, shard_ranges
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.dist import compress_sharded, decompress_sharded
+    from dctpu_torch.format import read_frame, write_frame
+
+    cfg = CodecConfig(coder=coder)
+    name = f"{coder}/sharded {len(mesh)}x{chunk_blocks}"
+    raw_bytes = sum(s.nbytes for s in streams)
+    enc_ms, dec_ms = {}, {}
+    torch.cuda.synchronize()
+    reset_counters()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        frame = compress_sharded(streams, cfg, mesh, ids, cads,
+                                 chunk_blocks=chunk_blocks, stage_ms=enc_ms)
+        data = write_frame(frame)
+        t1 = time.perf_counter()
+        out = decompress_sharded(read_frame(data), mesh,
+                                 chunk_blocks=chunk_blocks, stage_ms=dec_ms)
+        t2 = time.perf_counter()
+    launches = read_counters()
+    if data != want:
+        fail(f"the {name} frame differs from the default {coder} frame")
+    if len(out) != len(streams) or not all(
+            np.array_equal(a, b) for a, b in zip(streams, out)):
+        fail(f"the {name} round trip is not bit-exact")
+    coders = frame.blocks.coder_arr()
+    ranges = [(a, b) for c0, c1 in block_ranges(coders.size, chunk_blocks)
+              for _, a, b in shard_ranges(c0, c1, len(mesh))]
+    print(f"{name} path: frame byte-identical to the {coder} frame, round "
+          f"trip bit-exact, {len(ranges)} block ranges; compress+write_frame "
+          f"{1e3 * (t1 - t0):.1f} ms ({raw_bytes / (t1 - t0) / 1e9:.3f} GB/s), "
+          f"read_frame+decompress {1e3 * (t2 - t1):.1f} ms "
+          f"({raw_bytes / (t2 - t1) / 1e9:.3f} GB/s), host clock")
+    print(f"{name} path encode stages (CUDA events, ms): "
+          + json.dumps({k: round(v, 3) for k, v in enc_ms.items()}))
+    print(f"{name} path decode stages (CUDA events, ms): "
+          + json.dumps({k: round(v, 3) for k, v in dec_ms.items()}))
+    print(f"{name} path kernel launches: {json.dumps(launches)}; plain stage "
+          f"calls: {json.dumps(plain)}", flush=True)
+    want_launches = range_launches(coder, coders, ranges,
+                                   len(cfg.candidates()) - 2)
+    if launches != want_launches:
+        fail(f"the {name} path launched {launches}, want {want_launches}")
+    if any(plain.values()):
+        fail(f"plain stages ran on the {name} path: {plain}")
+    return launches
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def multihost_worker(spec: dict) -> None:
+    """One process of a compress_multihost run, started by run_multihost
+    as ``chip_smoke.py --multihost-worker SPEC`` (SPEC a JSON object): it
+    joins the gloo group at spec["coordinator"] as spec["rank"] of
+    spec["nproc"], encodes its contiguous share of
+    synth_corpus(**spec["corpus"]) with CodecConfig(spec["block_len"],
+    coder=spec["coder"]) on spec["device"] (None: compress_multihost's
+    default device), and prints one JSON line: its stats, its host ms and
+    its kernel launches. Process 0 writes the frame to spec["out"]."""
+    sys.path.insert(0, str(ROOT))
+    import torch.distributed as dist
+
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.corpus import synth_corpus
+    from dctpu_torch.dist import multihost
+    from dctpu_torch.format import write_frame
+
+    rank, nproc = spec["rank"], spec["nproc"]
+    multihost.initialize(spec["coordinator"], nproc, rank)
+    try:
+        streams, ids, cads = synth_corpus(**spec["corpus"])
+        per = len(streams) // nproc
+        lo, hi = rank * per, (rank + 1) * per
+        cfg = CodecConfig(block_len=spec["block_len"], coder=spec["coder"])
+        reset_counters()
+        t0 = time.perf_counter()
+        frame, stats = multihost.compress_multihost(
+            streams[lo:hi], cfg, ids[lo:hi], cads[lo:hi],
+            gather=spec["gather"], parts_dir=spec.get("parts_dir"),
+            device=spec["device"])
+        ms = 1e3 * (time.perf_counter() - t0)
+        if rank == 0:
+            Path(spec["out"]).write_bytes(write_frame(frame))
+        print(json.dumps({"rank": rank, "ms": ms, "launches": read_counters(),
+                          **stats}), flush=True)
+    finally:
+        dist.destroy_process_group()
+
+
+def run_multihost(spec: dict, nproc: int, timeout: float):
+    """Runs nproc multihost_worker processes over localhost with spec (plus
+    their coordinator, count and rank). Returns (each rank's JSON line,
+    wall seconds). Raises RuntimeError when a worker fails or outlives its
+    time limit of timeout seconds; every worker has ended by then."""
+    spec = {**spec, "coordinator": f"127.0.0.1:{free_port()}", "nproc": nproc}
+    env = {**os.environ, "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    procs = [
+        subprocess.Popen(
+            [sys.executable, str(ROOT / "chip_smoke.py"), "--multihost-worker",
+             json.dumps({**spec, "rank": rank})],
+            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env)
+        for rank in range(nproc)
+    ]
+    try:
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    except subprocess.TimeoutExpired as e:
+        raise RuntimeError(f"a multihost worker outlived {timeout} s") from e
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    seconds = time.perf_counter() - t0
+    bad = [(rank, p.returncode, err[-2000:])
+           for rank, (p, (_, err)) in enumerate(zip(procs, outs))
+           if p.returncode != 0]
+    if bad:
+        raise RuntimeError(f"multihost workers failed (rank, exit, stderr): {bad}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs], seconds
+
+
+def multihost_check(frames, corpus) -> dict:
+    """Phase 3c: compress_multihost with two processes on the card, each
+    taking 8 of the 16 streams, under the "allgather" and the "files"
+    gather, for the rice and the adaptive config: process 0's frame is
+    byte-identical to the rice path's (the reference's all-RICE frame for
+    coder="adaptive"), and the part files hold the payload section.
+    Returns each run's launches, summed over the processes."""
+    from dctpu_torch.format import read_frame
+
+    by_path = {}
+    for coder in ("rice", "adaptive"):
+        for gather in ("allgather", "files"):
+            with tempfile.TemporaryDirectory() as tmp:
+                spec = {"corpus": corpus, "block_len": BENCH_LEN,
+                        "coder": coder, "gather": gather, "device": None,
+                        "out": str(Path(tmp) / "frame.dcf"),
+                        "parts_dir": str(Path(tmp) / "parts")
+                        if gather == "files" else None}
+                try:
+                    lines, seconds = run_multihost(spec, 2, timeout=300)
+                except RuntimeError as e:
+                    fail(f"compress_multihost {coder}/{gather}: {e}")
+                data = Path(spec["out"]).read_bytes()
+                parts = sum(f.stat().st_size
+                            for f in Path(tmp).glob("parts/payload-*.u32"))
+            name = f"{coder}/multihost-{gather}"
+            if data != frames["rice"]:
+                fail(f"the {name} frame differs from the rice frame")
+            if gather == "files" and parts != read_frame(data).payload_words.nbytes:
+                fail(f"{name}: part files hold {parts} bytes, the payload "
+                     f"section {read_frame(data).payload_words.nbytes}")
+            launches = {k: sum(line["launches"][k] for line in lines)
+                        for k in lines[0]["launches"]}
+            by_path[name] = launches
+            print(f"{name}, 2 processes on the card: frame byte-identical to "
+                  f"the rice frame; compress_multihost host ms per process "
+                  f"{[round(line['ms'], 1) for line in lines]}, wall "
+                  f"{seconds:.2f} s with process start-up; stats "
+                  f"{json.dumps({k: lines[0][k] for k in ('global_blocks', 'local_blocks', 'compressed_words')})}; "
+                  f"launches {json.dumps(launches)}", flush=True)
+            got = [launches[k] for k in ("K6-xbp", "K5a", "K5b", "R")]
+            if got != [2, 2, 0, 0]:
+                fail(f"{name}: K6-xbp, K5a, K5b, R launched {got} times "
+                     "(want K6-xbp and K5a once in each process, the decode "
+                     "kernels never)")
+    return by_path
+
+
+def aux_check(dev, streams, ids, cads, frames, enc_s) -> None:
+    """Phase 3d: dryrun_multichip over every card; an EncodeJob of two
+    parts on the card whose merge equals the adaptive frame and decodes
+    bit-exact; one RunMetrics line per coder."""
+    import numpy as np
+    import torch
+
+    from dctpu_torch.codec.api import decompress
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.dist import dryrun_multichip
+    from dctpu_torch.format import read_frame
+    from dctpu_torch.utils import EncodeJob, RunMetrics
+
+    t0 = time.perf_counter()
+    dryrun_multichip(torch.cuda.device_count())
+    print(f"dryrun_multichip({torch.cuda.device_count()}): passed in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = EncodeJob(Path(tmp) / "job", CodecConfig(coder="adaptive"), dev)
+        half = len(streams) // 2
+        t0 = time.perf_counter()
+        job.encode_part("0", streams[:half], ids[:half], cads[:half])
+        job.encode_part("1", streams[half:], ids[half:], cads[half:])
+        merged = job.merge(Path(tmp) / "merged.dcf").read_bytes()
+        t1 = time.perf_counter()
+    if merged != frames["adaptive"]:
+        fail("the EncodeJob's merged frame differs from the adaptive frame")
+    out = decompress(read_frame(merged), device=dev)
+    if not all(np.array_equal(a, b) for a, b in zip(streams, out)):
+        fail("the EncodeJob's merged frame does not decode bit-exact")
+    print(f"EncodeJob: two parts on the card and merge in {1e3 * (t1 - t0):.1f}"
+          " ms (host clock), merged frame byte-identical to the adaptive "
+          "frame, decodes bit-exact", flush=True)
+    for coder in CODERS:
+        m = RunMetrics.from_frame(read_frame(frames[coder]), "encode",
+                                  enc_s[coder], len(frames[coder]))
+        print(f"RunMetrics {coder}: {m.to_json()}", flush=True)
+
+
+# (block length, mean stream lengths) of the host feed sweep: the bench
+# geometry, and the reference's host feed bench (bench/host_feed.py,
+# 1 M streams of mean 96 at L=128) at a smaller stream count
+FEED_SWEEP = ((BENCH_LEN, (96, 512, 1024, 2048, 4096)), (128, (96, 512, 1024, 2048)))
+
+
+def host_feed_sweep(total: int = 1 << 22, reps: int = 2) -> None:
+    """build_blocks' two host paths on about ``total`` samples of streams
+    of mean length m (lengths uniform in 1..2m-1), for each (L, m) of
+    FEED_SWEEP: arrays equal, the best of ``reps`` host times of each path
+    on this machine's CPU, and the path build_blocks takes. Needs no
+    card."""
+    import numpy as np
+
+    from dctpu_torch.codec import api
+
+    rng = np.random.default_rng(11)
+    for L, means in FEED_SWEEP:
+        for mean in means:
+            lens = rng.integers(1, 2 * mean, size=max(total // mean, 1))
+            flat = rng.integers(-(2**15), 2**15, size=int(lens.sum()),
+                                dtype=np.int32)
+            streams = np.split(flat, np.cumsum(lens)[:-1])
+            ms, out = {}, {}
+            for name, fn in (
+                ("flat", lambda: api.build_blocks_flat(
+                    np.concatenate(streams), lens, L)),
+                ("loop", lambda: api.build_blocks_loop(streams, L)),
+            ):
+                ms[name] = float("inf")
+                for _ in range(reps):
+                    t0 = time.perf_counter()
+                    out[name] = fn()
+                    ms[name] = min(ms[name], 1e3 * (time.perf_counter() - t0))
+            if not all(np.array_equal(a, b) for a, b in zip(out["flat"], out["loop"])):
+                fail(f"build_blocks' flat path differs from the loop at L={L}, "
+                     f"mean {mean}")
+            takes = "flat" if api.takes_flat_path(lens) else "loop"
+            print(f"host feed L={L}, {lens.size} streams of mean {mean} samples:"
+                  f" flat path {ms['flat']:.1f} ms (with the concatenation), "
+                  f"loop {ms['loop']:.1f} ms (best of {reps}, host times of the "
+                  f"card machine's CPU), arrays equal; build_blocks takes the "
+                  f"{takes} path", flush=True)
+
+
+def flat_feed_check(dev, streams) -> None:
+    """Phase 3e: the host feed sweep; then the 128 MiB corpus cut into
+    16384 streams of 2048 samples, whose flat-path arrays equal the
+    per-stream loop's, and decompress_flat of their adaptive frame equals
+    the concatenation. Host times are of the card machine's CPU."""
+    import numpy as np
+
+    from dctpu_torch.codec import api
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.format import read_frame, write_frame
+
+    host_feed_sweep()
+    flat = np.concatenate(streams)
+    short = np.split(flat, flat.size // 2048)
+    lens = np.full(len(short), 2048, np.int64)
+    t0 = time.perf_counter()
+    got = api.build_blocks_flat(np.concatenate(short), lens, BENCH_LEN)
+    t1 = time.perf_counter()
+    want = api.build_blocks_loop(short, BENCH_LEN)
+    t2 = time.perf_counter()
+    if not all(np.array_equal(a, b) for a, b in zip(got, want)):
+        fail("build_blocks' flat path differs from the per-stream loop")
+    frame = read_frame(write_frame(api.compress(
+        short, CodecConfig(coder="adaptive"), device=dev)))
+    t3 = time.perf_counter()
+    out, lens = api.decompress_flat(frame, device=dev)
+    t4 = time.perf_counter()
+    split = api.decompress(frame, device=dev)
+    t5 = time.perf_counter()
+    if not (np.array_equal(out, flat) and np.all(lens == 2048)
+            and all(np.array_equal(a, b) for a, b in zip(split, short))):
+        fail("decompress_flat of the 16384-stream frame differs from the input")
+    print(f"host feed, {len(short)} streams x 2048 samples: build_blocks "
+          f"flat path {1e3 * (t1 - t0):.1f} ms (with the concatenation), "
+          f"per-stream loop {1e3 * (t2 - t1):.1f} ms (host times of the card "
+          f"machine's CPU), arrays equal; decompress_flat "
+          f"{1e3 * (t4 - t3):.1f} ms, decompress {1e3 * (t5 - t4):.1f} ms "
+          "(host clock), equal to the input", flush=True)
 
 
 def ptxas_report(log: str) -> dict:
@@ -1022,6 +1380,7 @@ def main() -> int:
         fail(f"dctpu_torch not found beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
     from dctpu_torch.corpus import synth_corpus
+    from dctpu_torch.dist import make_mesh
     from dctpu_torch.kernels import _build
 
     smi = subprocess.run(
@@ -1045,24 +1404,30 @@ def main() -> int:
           flush=True)
     recs = check_kernels(dev)
 
-    streams, ids, cads = synth_corpus(
-        16, BENCH_BLOCKS * BENCH_LEN // 16, seed=123, mixed_cadence=True,
-        cumulative_frac=0.25,
-    )
-    frames, by_path = {}, {}
+    streams, ids, cads = synth_corpus(**CORPUS)
+    frames, by_path, enc_s = {}, {}, {}
     for coder in CODERS:
-        frames[coder], by_path[coder] = run_path(dev, coder, streams, ids, cads)
+        frames[coder], by_path[coder], enc_s[coder] = run_path(
+            dev, coder, streams, ids, cads)
     by_path["adaptive/reduce-select"] = reduce_select_check(dev, streams)
     for coder in ("vertical", "rice"):
         by_path[f"{coder}/z-form-emit"] = zform_emit_check(dev, streams, coder)
     for coder in ("adaptive", "vertical"):
-        data, by_path[path_name(coder, "pallas")] = run_path(
+        data, by_path[path_name(coder, "pallas")], _ = run_path(
             dev, coder, streams, ids, cads, backend="pallas")
         if data != frames[coder]:
             fail(f"the {coder} frame under backend='pallas' differs from the "
                  "default frame")
         print(f"{coder}/pallas frame byte-identical to the {coder} frame",
               flush=True)
+    for coder in CODERS:
+        by_path[f"{coder}/sharded"] = run_sharded(
+            coder, streams, ids, cads, make_mesh(), 2048, frames[coder])
+    by_path["adaptive/sharded-2x4"] = run_sharded(
+        "adaptive", streams, ids, cads, [dev, dev], 2048, frames["adaptive"])
+    by_path.update(multihost_check(frames, CORPUS))
+    aux_check(dev, streams, ids, cads, frames, enc_s)
+    flat_feed_check(dev, streams)
     # the count of the path each kernel was ported for: K1-K4 and R the
     # adaptive path, K5a, K5b and K6's forms the rice path, K7 the "reduce"
     # selection, K3's and K5a's z forms the z-form emissions, K8 and K9 the
@@ -1088,4 +1453,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--multihost-worker"]:
+        multihost_worker(json.loads(sys.argv[2]))
+        sys.exit(0)
     sys.exit(main())

@@ -12,15 +12,19 @@ Layers, mirroring ``dctpu``:
   kernels/ — CUDA kernels K1-K9 (csrc/) with plain torch twins, and the
              plain torch VERTICAL region math and ragged copies
   csrc/    — the CUDA C++ sources, built for sm_90a at first use
-  cli/     — encode / decode / verify (``python -m dctpu_torch.cli.main``)
+  dist/    — data parallelism over blocks on a list of devices, several
+             processes over torch.distributed (gloo), the multi-device dry run
+  utils/   — resumable encode jobs (``EncodeJob``) and run metrics
+  cli/     — encode / decode / verify, ``--sharded``
+             (``python -m dctpu_torch.cli.main``)
 
 All three coders are ported: ``CodecConfig(coder="rice")`` (the default),
 ``"vertical"`` and ``"adaptive"`` (the CLI default), through
 ``dctpu_torch.codec.api.compress`` and ``decompress``, with the
-reference's encode ``backend`` names. Not yet ported: the sharded and
-multi-process paths, the CLI's ``--sharded`` flag and ``bench`` verb, and
-the reference's decode backends. The compile cache of ``dctpu/utils`` is
-JAX-only and has no counterpart.
+reference's encode and decode ``backend`` names and ``chunk_blocks``.
+Not yet ported: the CLI's ``bench`` verb, which waits for the port's
+benchmark. The compile cache and the TPU timing helpers of
+``dctpu/utils`` are JAX-only and have no counterpart.
 """
 
 from dctpu_torch.config import CodecConfig, DEFAULT_LPC_TABLES, LpcTable  # noqa: F401

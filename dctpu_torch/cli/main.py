@@ -6,9 +6,13 @@ CUDA card unless ``--device cpu`` is given.
 
   python -m dctpu_torch.cli.main encode in.dcr out.dcf [--block-len N]
       [--predictors delta,dd,lpc] [--coder rice|vertical|adaptive]
-      [--fit-tables] [--device cuda|cpu]
-  python -m dctpu_torch.cli.main decode in.dcf out.dcr [--device ...]
+      [--fit-tables] [--device cuda|cpu] [--sharded]
+  python -m dctpu_torch.cli.main decode in.dcf out.dcr [--device ...] [--sharded]
   python -m dctpu_torch.cli.main verify in.dcr [same flags as encode]
+
+--sharded splits the blocks over every CUDA device (with --device cuda) or
+over the one device --device names. The reference CLI's bench verb is not
+ported: the port has no benchmark yet.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from dctpu_torch.codec.api import compress, decompress
 from dctpu_torch.codec.select import fit_lpc_tables
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import DELTA, DOUBLE_DELTA, LPC, RAW_MAGIC
+from dctpu_torch.dist import compress_sharded, decompress_sharded, make_mesh
 from dctpu_torch.format import read_frame, read_raw, write_frame, write_raw
 
 
@@ -44,12 +49,30 @@ def _cfg(args, streams) -> CodecConfig:
     )
 
 
+def _mesh(args):
+    """--sharded's devices: every CUDA device for --device cuda, else the
+    one device named."""
+    return make_mesh() if args.device == "cuda" else make_mesh([args.device])
+
+
+def _compress(args, streams, ids, cads):
+    cfg = _cfg(args, streams)
+    if args.sharded:
+        return compress_sharded(streams, cfg, _mesh(args), ids, cads)
+    return compress(streams, cfg, ids, cads, device=args.device)
+
+
+def _decompress(args, frame):
+    if args.sharded:
+        return decompress_sharded(frame, _mesh(args))
+    return decompress(frame, device=args.device)
+
+
 def cmd_encode(args):
     streams, ids, cads = _load_streams(args.input)
     raw = sum(s.nbytes for s in streams)
     t0 = time.time()
-    frame = compress(streams, _cfg(args, streams), ids, cads, device=args.device)
-    data = write_frame(frame)
+    data = write_frame(_compress(args, streams, ids, cads))
     dt = time.time() - t0
     Path(args.output).write_bytes(data)
     print(
@@ -62,7 +85,7 @@ def cmd_encode(args):
 def cmd_decode(args):
     frame = read_frame(Path(args.input).read_bytes())
     t0 = time.time()
-    streams = decompress(frame, device=args.device)
+    streams = _decompress(args, frame)
     dt = time.time() - t0
     ids = [s.stream_id for s in frame.streams]
     cads = [s.cadence_s for s in frame.streams]
@@ -73,10 +96,8 @@ def cmd_decode(args):
 
 def cmd_verify(args):
     streams, ids, cads = _load_streams(args.input)
-    data = write_frame(
-        compress(streams, _cfg(args, streams), ids, cads, device=args.device)
-    )
-    out = decompress(read_frame(data), device=args.device)
+    data = write_frame(_compress(args, streams, ids, cads))
+    out = _decompress(args, read_frame(data))
     ok = len(out) == len(streams) and all(
         np.array_equal(a, b) for a, b in zip(streams, out)
     )
@@ -95,6 +116,9 @@ def main(argv=None):
         sp.add_argument("--device", default="cuda",
                         help="torch device to run on (default cuda; cpu runs "
                              "the kernels' plain torch twins)")
+        sp.add_argument("--sharded", action="store_true",
+                        help="shard the blocks over all local CUDA devices "
+                             "(over the --device given, if not cuda)")
 
     def common(sp):
         sp.add_argument("input")

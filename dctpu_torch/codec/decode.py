@@ -14,16 +14,23 @@ import torch
 
 from dctpu_torch.kernels import reconstruct as recon
 from dctpu_torch.kernels.unpack import rice_unpack_words
-from dctpu_torch.kernels.vdec import decode_vertical_words
+from dctpu_torch.kernels.vdec import decode_vertical_words_plain, launch_vdec_words
 
 
-def decode_z(words, start, count, k, n, block_len: int, coder: str) -> torch.Tensor:
-    """The blocks at words[start_i : start_i + count_i] -> zigzag values
-    [B, block_len] int32 bit patterns. One launch of K4 or K5b per call on
-    a card."""
-    if coder == "vertical":
-        return decode_vertical_words(words, start, count, n, block_len)
-    return rice_unpack_words(words, start, count, k, n, block_len)
+def decode_z(words, start, count, k, n, block_len: int, coder: str):
+    """The blocks at words[start_i : start_i + count_i] -> (zigzag values
+    [B, block_len] int32 bit patterns, bad). One launch of K4 or K5b per
+    call on a card.
+
+    bad is K4's per-block flags on a card, left unread so that the caller
+    can launch other devices' work before its first host read; the caller
+    checks them with ``vdec.raise_if_bad``. It is None where the decode
+    checked its blocks itself (RICE, and the CPU twin, which raises)."""
+    if coder != "vertical":
+        return rice_unpack_words(words, start, count, k, n, block_len), None
+    if words.device.type == "cpu":
+        return decode_vertical_words_plain(words, start, count, n, block_len), None
+    return launch_vdec_words(words, start, count, n, block_len)
 
 
 def reconstruct(z, n, predictor, table_idx, history, table_coeffs) -> torch.Tensor:

@@ -6,7 +6,8 @@ library with a plain C interface, under ``build/dctpu_torch/`` at the
 repository root, keyed by a hash of the sources and flags: a changed source
 rebuilds, an unchanged one loads the cached library. Each C entry point
 launches on the stream it is given and returns ``cudaGetLastError()``;
-:func:`check` turns a non-zero code into an error.
+every wrapper calls one through :func:`launch`, which sets the tensor's
+device and turns a non-zero code into an error.
 
 Nothing here runs at import time: the CPU tests import every module on
 machines that have neither ``nvcc`` nor a card.
@@ -149,3 +150,15 @@ def block_args(name: str, words, start, *per_block):
 def stream_of(t) -> int:
     """The current CUDA stream of a tensor's device, as a pointer int."""
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def launch(name: str, t, *args) -> None:
+    """Calls the library's entry point ``name`` with ``args`` and the
+    current stream of t's device, and raises on a non-zero return.
+
+    The call runs under t's device: a ctypes call launches on the CUDA
+    runtime's current device, which for a tensor on another card (a shard
+    of ``dctpu_torch.dist``) would not be the device of its stream."""
+    with torch.cuda.device(t.device):
+        err = getattr(library(), name)(*args, stream_of(t))
+    check(err, name)

@@ -62,11 +62,11 @@ def exc_extract(zs: torch.Tensor, best_b: torch.Tensor):
     pos = torch.empty((B, S, POS_REGION), dtype=torch.int32, device=zs.device)
     vals = torch.empty((B, S, EXC_CAP), dtype=torch.int32, device=zs.device)
     if R:
-        err = _build.library().dct_exc_extract(
+        _build.launch(
+            "dct_exc_extract", zs,
             zs.data_ptr(), best_b.data_ptr(), pos.data_ptr(), vals.data_ptr(),
-            R, _build.stream_of(zs),
+            R,
         )
-        _build.check(err, "dct_exc_extract")
         exc_extract.launches += 1
     return pos, vals
 

@@ -124,11 +124,11 @@ def rice_pack(
         raise ValueError("rice_pack: expects z [B, block_len], k [B], n [B]")
     payload, bit_len = rows_out(B, L, padded_words(L), z.device)
     if B:
-        err = _build.library().dct_rice_pack(
+        _build.launch(
+            "dct_rice_pack", z,
             z.data_ptr(), k.data_ptr(), n.data_ptr(), payload.data_ptr(),
-            bit_len.data_ptr(), B, L, payload.shape[1], _build.stream_of(z),
+            bit_len.data_ptr(), B, L, payload.shape[1],
         )
-        _build.check(err, "dct_rice_pack")
         rice_pack.launches += 1
     return payload, bit_len
 
@@ -171,13 +171,12 @@ def rice_pack_rows(
         raise ValueError("rice_pack_rows: expects choice [B], k [B]")
     payload, bit_len = rows_out(B, L, padded_words(L), x.device)
     if B:
-        err = _build.library().dct_rice_pack_rows(
+        _build.launch(
+            "dct_rice_pack_rows", x,
             x.data_ptr(), history.data_ptr(), n.data_ptr(), k.data_ptr(),
             choice.data_ptr(), table.data_ptr(), table.shape[0],
             payload.data_ptr(), bit_len.data_ptr(), B, L, payload.shape[1],
-            _build.stream_of(x),
         )
-        _build.check(err, "dct_rice_pack_rows")
         rice_pack_rows.launches += 1
     return payload, bit_len
 

@@ -60,12 +60,11 @@ def reconstruct(
         )
     x = torch.empty((B, L), dtype=torch.int32, device=z.device)
     if B:
-        err = _build.library().dct_reconstruct(
+        _build.launch(
+            "dct_reconstruct", z,
             z.data_ptr(), n.data_ptr(), predictor.data_ptr(), table_idx.data_ptr(),
             history.data_ptr(), table_coeffs.data_ptr(), T, x.data_ptr(), B, L,
-            _build.stream_of(z),
         )
-        _build.check(err, "dct_reconstruct")
         reconstruct.launches += 1
     return x
 

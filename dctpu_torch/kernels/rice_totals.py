@@ -65,11 +65,10 @@ def rice_totals(
         raise ValueError("rice_totals: expects z [B, block_len], n [B]")
     out = torch.empty((B, k_max + 1), dtype=torch.int32, device=z.device)
     if B:
-        err = _build.library().dct_rice_totals(
+        _build.launch(
+            "dct_rice_totals", z,
             z.data_ptr(), n.data_ptr(), out.data_ptr(), B, L, k_max,
-            _build.stream_of(z),
         )
-        _build.check(err, "dct_rice_totals")
         rice_totals.launches += 1
     return out
 
@@ -111,11 +110,11 @@ def rice_totals_xbp(
     B, L = x.shape
     out = torch.empty((B, 2, k_max + 1), dtype=torch.int32, device=x.device)
     if B:
-        err = _build.library().dct_rice_totals_xbp(
+        _build.launch(
+            "dct_rice_totals_xbp", x,
             x.data_ptr(), history.data_ptr(), n.data_ptr(), out.data_ptr(),
-            B, L, k_max, _build.stream_of(x),
+            B, L, k_max,
         )
-        _build.check(err, "dct_rice_totals_xbp")
         rice_totals_xbp.launches += 1
     return out.permute(1, 0, 2)
 
@@ -150,11 +149,11 @@ def rice_totals_lpc(
     B, L = x.shape
     out = torch.empty((B, k_max + 1), dtype=torch.int32, device=x.device)
     if B:
-        err = _build.library().dct_rice_totals_lpc(
+        _build.launch(
+            "dct_rice_totals_lpc", x,
             x.data_ptr(), history.data_ptr(), n.data_ptr(), out.data_ptr(),
-            B, L, k_max, *coeffs, _build.stream_of(x),
+            B, L, k_max, *coeffs,
         )
-        _build.check(err, "dct_rice_totals_lpc")
         rice_totals_lpc.launches += 1
     return out
 

@@ -112,11 +112,10 @@ def adaptive_totals_bp(
         raise ValueError("adaptive_totals_bp: expects z [B, block_len], n [B]")
     out = torch.empty((B, k_max + 2), dtype=torch.int32, device=z.device)
     if B:
-        err = _build.library().dct_select_bp(
+        _build.launch(
+            "dct_select_bp", z,
             z.data_ptr(), n.data_ptr(), out.data_ptr(), B, L, k_max,
-            _build.stream_of(z),
         )
-        _build.check(err, "dct_select_bp")
         adaptive_totals_bp.launches += 1
     return out[:, : k_max + 1], out[:, k_max + 1]
 
@@ -157,11 +156,11 @@ def adaptive_totals_lpc(
     B, L = x.shape
     out = torch.empty((B, k_max + 2), dtype=torch.int32, device=x.device)
     if B:
-        err = _build.library().dct_select_lpc(
+        _build.launch(
+            "dct_select_lpc", x,
             x.data_ptr(), history.data_ptr(), n.data_ptr(), out.data_ptr(),
-            B, L, k_max, *coeffs, _build.stream_of(x),
+            B, L, k_max, *coeffs,
         )
-        _build.check(err, "dct_select_lpc")
         adaptive_totals_lpc.launches += 1
     return out[:, : k_max + 1], out[:, k_max + 1]
 
@@ -204,11 +203,11 @@ def adaptive_totals_xbp(
     B, L = x.shape
     out = torch.empty((B, 2, k_max + 2), dtype=torch.int32, device=x.device)
     if B:
-        err = _build.library().dct_select_xbp(
+        _build.launch(
+            "dct_select_xbp", x,
             x.data_ptr(), history.data_ptr(), n.data_ptr(), out.data_ptr(),
-            B, L, k_max, _build.stream_of(x),
+            B, L, k_max,
         )
-        _build.check(err, "dct_select_xbp")
         adaptive_totals_xbp.launches += 1
     out = out.permute(1, 0, 2)
     return out[:, :, : k_max + 1], out[:, :, k_max + 1]

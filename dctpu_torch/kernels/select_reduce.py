@@ -78,11 +78,10 @@ def adaptive_totals_reduce(
         raise ValueError("adaptive_totals_reduce: expects z [B, block_len], n [B]")
     out = torch.empty((B, k_max + 2), dtype=torch.int32, device=z.device)
     if B:
-        err = _build.library().dct_select_reduce(
+        _build.launch(
+            "dct_select_reduce", z,
             z.data_ptr(), n.data_ptr(), out.data_ptr(), B, L, k_max,
-            _build.stream_of(z),
         )
-        _build.check(err, "dct_select_reduce")
         adaptive_totals_reduce.launches += 1
     return out[:, : k_max + 1], out[:, k_max + 1]
 

@@ -48,11 +48,10 @@ def bit_planes32(rows: torch.Tensor) -> torch.Tensor:
         raise ValueError("bit_planes32: expects rows [R, 128]")
     out = torch.empty_like(rows)
     if rows.shape[0]:
-        err = _build.library().dct_bit_planes32(
+        _build.launch(
+            "dct_bit_planes32", rows,
             rows.data_ptr(), out.data_ptr(), rows.shape[0],
-            _build.stream_of(rows),
         )
-        _build.check(err, "dct_bit_planes32")
         bit_planes32.launches += 1
     return out
 

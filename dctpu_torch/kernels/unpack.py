@@ -139,12 +139,11 @@ def rice_unpack_words(
         )
     z = torch.empty((B, block_len), dtype=torch.int32, device=words.device)
     if B:
-        err = _build.library().dct_rice_unpack_words(
+        _build.launch(
+            "dct_rice_unpack_words", words,
             words.data_ptr(), start.data_ptr(), count.data_ptr(), k.data_ptr(),
             n.data_ptr(), z.data_ptr(), B, block_len, row_words(block_len),
-            _build.stream_of(words),
         )
-        _build.check(err, "dct_rice_unpack_words")
         rice_unpack_words.launches += 1
     return z
 

@@ -114,7 +114,9 @@ def launch_vdec_words(
 ):
     """K4's launch on CUDA tensors -> (z, bad): bad [B] int32 is 1 where a
     block's sync table does not describe its words, whose z is then not
-    written. :func:`decode_vertical_words` reads the flags."""
+    written. :func:`decode_vertical_words` reads the flags at once; a
+    caller that launches on several devices reads them later with
+    :func:`raise_if_bad`."""
     if words.device.type != "cuda":
         raise ValueError(
             f"decode_vertical_words: unsupported device {words.device}"
@@ -130,11 +132,11 @@ def launch_vdec_words(
     z = torch.empty((B, block_len), dtype=torch.int32, device=words.device)
     bad = torch.empty(B, dtype=torch.int32, device=words.device)
     if B:
-        err = _build.library().dct_vdec_words(
+        _build.launch(
+            "dct_vdec_words", words,
             words.data_ptr(), start.data_ptr(), count.data_ptr(), n.data_ptr(),
-            z.data_ptr(), bad.data_ptr(), B, block_len, _build.stream_of(words),
+            z.data_ptr(), bad.data_ptr(), B, block_len,
         )
-        _build.check(err, "dct_vdec_words")
         decode_vertical_words.launches += 1
     return z, bad
 
@@ -152,9 +154,15 @@ def decode_vertical_words(
     if words.device.type == "cpu":
         return decode_vertical_words_plain(words, start, count, n, block_len)
     z, bad = launch_vdec_words(words, start, count, n, block_len)
-    if bool(bad.any()):
-        raise ValueError(ragged.BAD_VERTICAL_TABLE)
+    raise_if_bad(bad)
     return z
+
+
+def raise_if_bad(bad) -> None:
+    """One host read of :func:`launch_vdec_words`' flags (None: nothing to
+    read) -> the twin's ValueError if a block's sync table was bad."""
+    if bad is not None and bool(bad.any()):
+        raise ValueError(ragged.BAD_VERTICAL_TABLE)
 
 
 decode_vertical_words.launches = 0

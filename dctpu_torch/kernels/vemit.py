@@ -112,11 +112,11 @@ def vertical_emit_rows_z(z: torch.Tensor, n: torch.Tensor, block_len: int):
         raise ValueError("vertical_emit_rows_z: expects z [B, block_len], n [B]")
     payload, bit_len = rows_out(B, L, padded_words_vertical(L), z.device)
     if B:
-        err = _build.library().dct_vemit_rows_z(
+        _build.launch(
+            "dct_vemit_rows_z", z,
             z.data_ptr(), n.data_ptr(), payload.data_ptr(), bit_len.data_ptr(),
-            B, L, _build.stream_of(z),
+            B, L,
         )
-        _build.check(err, "dct_vemit_rows_z")
         vertical_emit_rows_z.launches += 1
     return payload, bit_len
 
@@ -157,12 +157,12 @@ def vertical_emit_rows(
         raise ValueError("vertical_emit_rows: expects choice [B]")
     payload, bit_len = rows_out(B, L, padded_words_vertical(L), x.device)
     if B:
-        err = _build.library().dct_vemit_rows(
+        _build.launch(
+            "dct_vemit_rows", x,
             x.data_ptr(), history.data_ptr(), n.data_ptr(), choice.data_ptr(),
             table.data_ptr(), table.shape[0], payload.data_ptr(), bit_len.data_ptr(),
-            B, L, _build.stream_of(x),
+            B, L,
         )
-        _build.check(err, "dct_vemit_rows")
         vertical_emit_rows.launches += 1
     return payload, bit_len
 

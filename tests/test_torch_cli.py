@@ -1,9 +1,9 @@
 """The port's CLI (dctpu_torch.cli.main) on the CPU, mirroring tests/test_cli.py.
 
 Encode DCR1 -> DCF1 and back for each coder, verify, bare int32 input, a
-predictor subset and --fit-tables, all with ``--device cpu``; the port's
-frames are byte-identical to the reference CLI's and the reference CLI
-decodes them.
+predictor subset, --fit-tables and --sharded, all with ``--device cpu``;
+the port's frames are byte-identical to the reference CLI's and the
+reference CLI decodes them.
 """
 
 import numpy as np
@@ -104,3 +104,19 @@ def test_cli_fit_tables_roundtrip(tmp_path):
     ]
     ref_main(["encode", str(src), str(ref), "--block-len", "256", "--fit-tables"])
     assert enc.read_bytes() == ref.read_bytes()
+
+
+def test_cli_sharded(tmp_path, corpus_file):
+    """--sharded over the --device given: verify passes, and the encoded
+    frame is byte-identical to the reference CLI's --sharded frame (its
+    compress_sharded over the 8 fake devices)."""
+    p, streams, _, _ = corpus_file
+    assert cli_main(["verify", str(p), "--block-len", "512", "--sharded", *CPU]) == 0
+    port_f, ref_f = tmp_path / "port.dcf", tmp_path / "ref.dcf"
+    back_f = tmp_path / "back.dcr"
+    assert cli_main(["encode", str(p), str(port_f), "--block-len", "512",
+                     "--sharded", *CPU]) == 0
+    ref_main(["encode", str(p), str(ref_f), "--block-len", "512", "--sharded"])
+    assert port_f.read_bytes() == ref_f.read_bytes()
+    assert cli_main(["decode", str(port_f), str(back_f), "--sharded", *CPU]) == 0
+    assert _same(streams, back_f)

@@ -1,6 +1,7 @@
 """The CUDA kernels K1-K9 and R (and the x forms of K2, K3, K5a and K6, the
 words forms of K4 and K5b, and K9's disk-order planes) against their plain
-twins, on the card, and the launches of the round trips.
+twins, on the card, the launches of the round trips, and the sharded path
+over two shards of the card with the device guard of every launch.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -9,17 +10,22 @@ missing, without tests/conftest.py (which imports it):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
+import sys
+
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from chip_smoke import scatter_blocks
 from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import api, encode, predict
 from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
 from dctpu_torch.corpus import synth_corpus
+from dctpu_torch.dist import compress_sharded, decompress_sharded
 from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
+    _build,
     exc_extract,
     pack,
     ragged,
@@ -339,3 +345,79 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     assert [fn.launches for fn in counted] == [groups, vert, 0, vert,
                                                groups - vert, groups - vert, 0]
     assert groups == (2 if coder == "adaptive" else 1)
+
+
+def test_sharded_two_shards_on_card(cuda):
+    """The adaptive coder over [cuda:0, cuda:0] in two chunks of 128 blocks
+    at 256 x 4096: the default frame, a bit-exact round trip, and every
+    kernel of the default path once per shard, chunk and coder group."""
+    cfg = CodecConfig(coder="adaptive")
+    streams, ids, cads = synth_corpus(4, 256 * 4096 // 4, seed=3,
+                                      mixed_cadence=True, cumulative_frac=0.5)
+    want = write_frame(api.compress(streams, cfg, ids, cads, device=cuda))
+    mesh = [torch.device("cuda", 0)] * 2
+    chip_smoke.reset_counters()
+    frame = compress_sharded(streams, cfg, mesh, ids, cads, chunk_blocks=128)
+    out = decompress_sharded(read_frame(want), mesh, chunk_blocks=128)
+    launches = chip_smoke.read_counters()
+    assert write_frame(frame) == want
+    assert all(np.array_equal(a, b) for a, b in zip(streams, out))
+    coders = frame.blocks.coder_arr()
+    assert set(coders.tolist()) == {0, 1}
+    ranges = [(a, b) for c0, c1 in api.block_ranges(coders.size, 128)
+              for _, a, b in api.shard_ranges(c0, c1, 2)]
+    assert len(ranges) == 4
+    assert launches == chip_smoke.range_launches(
+        "adaptive", coders, ranges, len(cfg.candidates()) - 2)
+
+
+def test_sharded_decode_raises_for_a_bad_vertical_block_on_card(cuda):
+    """The sharded decode reads K4's flags only after every shard of a
+    chunk is launched, and still raises the twin's ValueError for a
+    VERTICAL block whose sync table is bad, in either shard."""
+    cfg = CodecConfig(block_len=1000, coder="adaptive")
+    streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
+                                      cumulative_frac=0.5)
+    data = write_frame(api.compress(streams, cfg, ids, cads, device=cuda))
+    mesh = [torch.device("cuda", 0)] * 2
+    coders = read_frame(data).blocks.coder_arr()
+    vert = np.nonzero(coders == 1)[0]
+    for b in (vert[0], vert[-1]):
+        frame = read_frame(data)
+        w = frame.blocks.word_offsets(cfg.block_len)[b]
+        frame.payload_words[w] = (frame.payload_words[w] & 0xFFFF0000) | 40
+        with pytest.raises(ValueError, match="sync table does not match"):
+            decompress_sharded(frame, mesh, chunk_blocks=coders.size)
+        with pytest.raises(ValueError, match="sync table does not match"):
+            api.decompress(frame, device=cuda)
+
+
+def test_every_launch_runs_under_its_device(cuda, monkeypatch):
+    """Each kernel launch of a round trip goes through _build.launch, which
+    sets the launching tensor's device: one entry made by _build.launch
+    for each launch the wrappers count."""
+    entered = []
+    real = torch.cuda.device
+
+    class Recording(real):
+        def __init__(self, device):
+            if sys._getframe(1).f_code is _build.launch.__code__:
+                entered.append(torch.device(device))
+            super().__init__(device)
+
+    monkeypatch.setattr(torch.cuda, "device", Recording)
+    wrappers = {fn for fns in chip_smoke.counters().values() for fn in fns}
+    streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
+                                      cumulative_frac=0.5)
+    for coder, backend in (("adaptive", None), ("rice", None),
+                           ("vertical", "pallas")):
+        cfg = CodecConfig(block_len=1000, coder=coder)
+        chip_smoke.reset_counters()
+        entered.clear()
+        frame = api.compress(streams, cfg, ids, cads, device=cuda, backend=backend)
+        api.decompress(read_frame(write_frame(frame)), device=cuda)
+        total = sum(fn.launches for fn in wrappers)
+        assert total > 0
+        assert len(entered) == total
+        assert all(d.type == "cuda" and d.index == torch.cuda.current_device()
+                   for d in entered)
