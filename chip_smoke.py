@@ -14,7 +14,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      each default table and one whose products wrap the int64
      accumulator), K6 in its three: on zigzag values, on the raw samples
      for DELTA + DOUBLE_DELTA ("K6-xbp") and for an LPC table ("K6-lpc",
-     the same tables), K3 in its two, the payload rows from the raw
+     the same tables), VC, the coder="vertical" selection cost, in its
+     two, both on the raw samples ("VC-xbp" for DELTA + DOUBLE_DELTA,
+     "VC-lpc" for an LPC table, the same tables), K3 in its two, the
+     payload rows from the raw
      samples with every candidate of those tables chosen ("K3") and from
      zigzag values ("K3-z"), K5a in its two, likewise ("K5a", the RICE
      rows from the raw samples at every k in 0..30, and "K5a-z"), K9's
@@ -29,14 +32,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      counters set to 0 just before it and read just after: every round
      trip bit-exact, every kernel of each path launched (K6-xbp once,
      K6-lpc once per LPC candidate and K6's z form never on the rice path;
+     VC-xbp once and VC-lpc once per LPC candidate on the vertical paths,
+     never on the others;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
      paths; R once per coder group in every decode, K5b once per RICE
      group and K4 once per VERTICAL group; K3 once per VERTICAL group and
      its z form never; K5a's x form once per RICE group and its z form
-     never), and the plain torch stages that R, K3, K4, K5a and K5b
+     never), and the plain torch stages that R, K3, K4, K5a, K5b and VC
      replace never run (the LPC recurrence loop, the region assembly, the
      winner's residuals in an emission, the staging of the decode's
-     rows), with the device segments each compress obtained from
+     rows, the VERTICAL selection cost), with the device segments each compress obtained from
      the allocator (and, for the adaptive path, the stage times of a
      second compress on the cached segments); then, on the same corpus,
      the adaptive selection under
@@ -221,6 +226,9 @@ def bound(nbytes: float, ops: float):
 # each), a subtraction and a zigzag.
 LEN_OPS, K_OPS, ROW_OPS = 9, 24, 32 + 33 * 9
 DELTAS_OPS, LPC_OPS = 3 + 2 * 3, 2 * (4 + 3 + 1) + 1 + 3
+# VC's cost per valid sample and candidate: the bit length (clz,
+# subtract) and the add to the sum, besides the residuals as above.
+VC_OPS = 3
 # The prediction of one sample (DELTA none; DOUBLE_DELTA a shift and a
 # subtraction; LPC 4 multiplies, 3 adds and a shift in 64 bits), plus 4:
 # the residual's subtraction and zigzag, or the unzigzag and the addition.
@@ -237,6 +245,7 @@ def work(key, B, L, n, b, rows_words, preds):
     """(bytes, ops) of kernel `key` on this run's inputs. ops count the
     integer work that the function needs: the selection totals as above
     (K1, K2, K2-lpc, K7; K6, K6-xbp, K6-lpc without the VERTICAL words),
+    VC_OPS and the residuals' per valid sample and candidate for VC,
     64 per valid sample for K3's bit planes and exceptions (plus the
     chosen candidate's PRED_OPS in its x form, from preds), PRED_OPS per
     valid sample for R, 3 per decoded plane bit for K4, ~20 per codeword
@@ -279,6 +288,9 @@ def work(key, B, L, n, b, rows_words, preds):
         "K6-lpc": (4 * B * L + 16 * B + 4 * B + 4 * B * K1,
                    rice + v * LPC_OPS),
         "K7": (4 * B * L + 4 * B + 4 * B * (K1 + 1), select),
+        "VC-xbp": (4 * B * L + 16 * B + 4 * B + 4 * B * 2,
+                   v * (2 * VC_OPS + DELTAS_OPS)),
+        "VC-lpc": (4 * B * L + 16 * B + 4 * B + 4 * B, v * (VC_OPS + LPC_OPS)),
         "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
         "K9": (sub_bytes * 128 * 2, 15 * 128 * R),
     }[key]
@@ -318,6 +330,11 @@ RECS = {
            "dctpu/kernels/transpose_pallas.py:83"),
     "R": ("R reconstruct", "dctpu_torch/csrc/recon.cu",
           "dctpu/codec/predict.py:93"),
+    "VC-xbp": ("VC vertical_cost_xbp (DELTA + DOUBLE_DELTA form)",
+               "dctpu_torch/csrc/select.cu",
+               "dctpu/kernels/vertical_xla.py:263"),
+    "VC-lpc": ("VC vertical_cost_lpc (LPC form)", "dctpu_torch/csrc/select.cu",
+               "dctpu/kernels/vertical_xla.py:263"),
 }
 
 
@@ -391,6 +408,12 @@ def check_kernels(dev):
         vertical_emit_rows_z_plain,
     )
     from dctpu_torch.kernels.vertical import assemble_rows, sub_rows
+    from dctpu_torch.kernels.vertical_cost import (
+        vertical_cost_lpc,
+        vertical_cost_lpc_plain,
+        vertical_cost_xbp,
+        vertical_cost_xbp_plain,
+    )
 
     recs = {
         key: dict(name=name, route="cuda", source=src, replaces=rep,
@@ -398,7 +421,7 @@ def check_kernels(dev):
         for key, (name, src, rep) in RECS.items()
     }
     K = K_MAX
-    # K2-lpc and K6-lpc are held against their twins with every default
+    # K2-lpc, K6-lpc and VC-lpc are held against their twins with every default
     # table and one whose products wrap the int64 accumulator on the
     # -2**31 samples of row 0; they are timed with the first default table.
     # K3 and K5a's x form choose every candidate of those tables in turn,
@@ -488,6 +511,13 @@ def check_kernels(dev):
             ),
             "K7": (lambda: adaptive_totals_reduce(z, n, L, K),
                    lambda: adaptive_totals_reduce_plain(z, n, L, K)),
+            "VC-xbp": (lambda: (vertical_cost_xbp(x, hist_r, n, L),),
+                       lambda: (vertical_cost_xbp_plain(x, hist_r, n, L),)),
+            "VC-lpc": (
+                lambda: [vertical_cost_lpc(x, hist_r, n, c, L) for c in tables],
+                lambda: [vertical_cost_lpc_plain(x, hist_r, n, c, L)
+                         for c in tables],
+            ),
             "K8": (lambda: exc_extract(zs, b_exc),
                    lambda: exc_extract_plain(zs, b_exc)),
             "K9": (lambda: (bit_planes32(groups),),
@@ -515,6 +545,9 @@ def check_kernels(dev):
                 if key == "K6-lpc":
                     kern = lambda: rice_totals_lpc(x, hist, n, c0, L, K)  # noqa: E731
                     plain = lambda: rice_totals_lpc_plain(x, hist, n, c0, L, K)  # noqa: E731
+                if key == "VC-lpc":
+                    kern = lambda: vertical_cost_lpc(x, hist_r, n, c0, L)  # noqa: E731
+                    plain = lambda: vertical_cost_lpc_plain(x, hist_r, n, c0, L)  # noqa: E731
                 if key == "K4":  # the kernel; the wrapper adds a host read
                     r["wrapper_ms"] = time_ms(kern, 10)
                     kern = lambda: launch_vdec_words(v_words, v_start, v_count, n, L)  # noqa: E731
@@ -643,6 +676,7 @@ def counters():
         unpack,
         vdec,
         vemit,
+        vertical_cost,
     )
 
     return {
@@ -663,6 +697,8 @@ def counters():
         "K8": (exc_extract.exc_extract,),
         "K9": (transpose.bit_planes32,),
         "R": (reconstruct.reconstruct,),
+        "VC-xbp": (vertical_cost.vertical_cost_xbp,),
+        "VC-lpc": (vertical_cost.vertical_cost_lpc,),
     }
 
 
@@ -681,38 +717,42 @@ def read_counters() -> dict:
 NEEDS = {
     ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b", "R"),
     ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc", "R"),
-    ("vertical", None): ("K3", "K4", "R"),
+    ("vertical", None): ("K3", "K4", "R", "VC-xbp", "VC-lpc"),
     ("adaptive", "pallas"): ("K1", "K2", "K2-lpc", "K4", "K5a", "K5b", "K8",
                              "K9", "R"),
-    ("vertical", "pallas"): ("K4", "K8", "K9", "R"),
+    ("vertical", "pallas"): ("K4", "K8", "K9", "R", "VC-xbp", "VC-lpc"),
 }
 NEVER = {
-    ("adaptive", None): ("K3-z", "K5a-z", "K9"),
-    ("rice", None): ("K5a-z",),
+    ("adaptive", None): ("K3-z", "K5a-z", "K9", "VC-xbp", "VC-lpc"),
+    ("rice", None): ("K5a-z", "VC-xbp", "VC-lpc"),
     ("vertical", None): ("K3-z", "K5a-z", "K9"),
-    ("adaptive", "pallas"): ("K3", "K3-z", "K5a-z"),
+    ("adaptive", "pallas"): ("K3", "K3-z", "K5a-z", "VC-xbp", "VC-lpc"),
     ("vertical", "pallas"): ("K3", "K3-z", "K5a-z"),
 }
 
 
 @contextlib.contextmanager
 def plain_calls():
-    """Counts the calls of the plain torch stages that R, K3, K4, K5a and
-    K5b replace on the default paths: the LPC recurrence loop, the region
-    assembly, the winner's residuals of an emission (a VERTICAL group's on
-    the staged backends only), and the staging of the decode's VERTICAL
-    and RICE rows; and the flips in the staged VERTICAL emission, which K9
-    no longer needs."""
+    """Counts the calls of the plain torch stages that R, K3, K4, K5a, K5b
+    and VC replace on the default paths: the LPC recurrence loop, the
+    region assembly, the winner's residuals of an emission (a VERTICAL
+    group's on the staged backends only), the staging of the decode's
+    VERTICAL and RICE rows, and the VERTICAL selection cost (VC's twin
+    too); and the flips in the staged VERTICAL emission, which K9 no
+    longer needs."""
     import torch
 
     from dctpu_torch.codec import encode, predict
-    from dctpu_torch.kernels import ragged, vemit
+    from dctpu_torch.kernels import ragged, vemit, vertical, vertical_cost
 
     counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0,
-              "stage_vertical": 0, "pad_payload": 0, "staged_flip": 0}
+              "stage_vertical": 0, "pad_payload": 0,
+              "vertical_selection_cost": 0, "staged_flip": 0}
     patched = [(predict, "reconstruct_lpc"), (encode, "assemble_rows"),
                (vemit, "assemble_rows"), (predict, "chosen_residuals"),
-               (ragged, "stage_vertical"), (ragged, "pad_payload")]
+               (ragged, "stage_vertical"), (ragged, "pad_payload"),
+               (vertical, "vertical_selection_cost"),
+               (vertical_cost, "vertical_selection_cost")]
     saved = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -831,7 +871,8 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     staged_vert = int(staged and hist[1] > 0)
     want_plain = {"reconstruct_lpc": 0, "assemble_rows": staged_vert,
                   "chosen_residuals": staged_vert, "stage_vertical": 0,
-                  "pad_payload": 0, "staged_flip": 0}
+                  "pad_payload": 0, "vertical_selection_cost": 0,
+                  "staged_flip": 0}
     if (launches["R"], launches["K3"], plain) != (
             groups, 0 if staged else int(hist[1] > 0), want_plain):
         fail(f"R launched {launches['R']} times (want {groups}, one per coder "
@@ -853,6 +894,10 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
             fail(f"K6-xbp launched {launches['K6-xbp']} times (want 1), "
                  f"K6-lpc {launches['K6-lpc']} (want {n_lpc}), K6's z form "
                  f"{z_form} (want 0)")
+    if cfg.coder == "vertical" and (
+            launches["VC-xbp"], launches["VC-lpc"]) != (1, n_lpc):
+        fail(f"VC-xbp launched {launches['VC-xbp']} times (want 1), VC-lpc "
+             f"{launches['VC-lpc']} (want {n_lpc})")
     if cfg.coder == "adaptive" and (launches["K1"], launches["K2-lpc"]) != (1, n_lpc):
         fail(f"K1 launched {launches['K1']} times (want 1), K2's LPC form "
              f"{launches['K2-lpc']} (want {n_lpc})")
@@ -1010,19 +1055,21 @@ def cli_check() -> None:
 def range_launches(coder, coders, ranges, n_lpc) -> dict:
     """The launches of a sharded round trip whose encode and decode each
     cover these block ranges, one pass per range: every kernel of the
-    coder's default path once per range and coder group (K2 and K6 once
-    per LPC candidate too, K6-xbp once), and none of the z forms, K7, K8
-    or K9."""
+    coder's default path once per range and coder group (K2, K6 and
+    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), and none
+    of the z forms, K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
     adaptive, rice_sel = coder == "adaptive", coder == "rice"
+    vert_sel = coder == "vertical"
     return {
         "K1": r * adaptive, "K2": r * n_lpc * adaptive,
         "K2-lpc": r * n_lpc * adaptive, "K3": vert, "K3-z": 0, "K4": vert,
         "K5a": rice, "K5a-z": 0, "K5b": rice, "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
-        "K8": 0, "K9": 0, "R": rice + vert,
+        "K8": 0, "K9": 0, "R": rice + vert, "VC-xbp": r * vert_sel,
+        "VC-lpc": r * n_lpc * vert_sel,
     }
 
 
@@ -1340,7 +1387,8 @@ def flat_feed_check(dev, streams) -> None:
 def ptxas_report(log: str) -> dict:
     """{kernel: "N registers, smem, spill"} from the nvcc -Xptxas=-v log;
     a dct::...<Src i, VERT> template shows as "name<Src i, true|false>",
-    a dct::...<bool, ...> one as "name<true|false, ...>"."""
+    a dct::...<Src i> one as "name<Src i>", a dct::...<bool, ...> one as
+    "name<true|false, ...>"."""
     import re
 
     out, name, spill = {}, None, ""
@@ -1351,11 +1399,13 @@ def ptxas_report(log: str) -> dict:
             short = re.match(r"_ZN3dct(\d+)", mangled)
             name = (mangled[short.end():short.end() + int(short.group(1))]
                     if short else mangled)
-            arg = re.search(r"SrcE(\d)ELb(\d)", mangled)
+            arg = re.search(r"SrcE(\d)E(?:Lb(\d))?", mangled)
             flags = re.search(r"I((?:Lb\dE)+)E", mangled)
-            if arg:
+            if arg and arg.group(2):
                 vert = "true" if arg.group(2) == "1" else "false"
                 name += f"<Src {arg.group(1)}, {vert}>"
+            elif arg:
+                name += f"<Src {arg.group(1)}>"
             elif flags:
                 bools = re.findall(r"Lb(\d)E", flags.group(1))
                 name += "<" + ", ".join(
@@ -1429,14 +1479,16 @@ def main() -> int:
     aux_check(dev, streams, ids, cads, frames, enc_s)
     flat_feed_check(dev, streams)
     # the count of the path each kernel was ported for: K1-K4 and R the
-    # adaptive path, K5a, K5b and K6's forms the rice path, K7 the "reduce"
+    # adaptive path, K5a, K5b and K6's forms the rice path, VC's forms the
+    # vertical path, K7 the "reduce"
     # selection, K3's and K5a's z forms the z-form emissions, K8 and K9 the
     # adaptive path under backend="pallas"
     home = {"K5a": "rice", "K5b": "rice", "K6": "rice", "K6-xbp": "rice",
             "K6-lpc": "rice", "K3-z": "vertical/z-form-emit",
             "K5a-z": "rice/z-form-emit",
             "K7": "adaptive/reduce-select", "K8": "adaptive/pallas",
-            "K9": "adaptive/pallas"}
+            "K9": "adaptive/pallas", "VC-xbp": "vertical",
+            "VC-lpc": "vertical"}
     for key, r in recs.items():
         r["launches"] = by_path[home.get(key, "adaptive")][key]
         r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

@@ -12,8 +12,9 @@ zigzag values, derived in XLA). coder="rice": K6's x forms, one launch
 for DELTA and DOUBLE_DELTA and one per LPC candidate, also read straight
 from the samples (the TPU ran K6 on each candidate's zigzag values,
 ``rice.choose_k_auto``).
-coder="vertical": the bit-length cost of each candidate's zigzag values,
-plain torch (XLA on the TPU too). Emission runs the coder of the group:
+coder="vertical": VC's two forms, the sum of the bit lengths of each
+candidate's zigzag residuals, likewise from the samples (XLA on the TPU).
+Emission runs the coder of the group:
 for VERTICAL, K3's x form, for RICE, K5a's x form; each derives every
 block's chosen residuals from the samples and writes the payload rows
 (the TPU ran its emit and pack kernels on zigzag values derived in XLA,
@@ -68,8 +69,8 @@ from dctpu_torch.kernels.vertical import (
     plane_word_counts,
     select_width,
     sub_rows,
-    vertical_selection_cost,
 )
+from dctpu_torch.kernels.vertical_cost import vertical_cost_lpc, vertical_cost_xbp
 
 # the reference RICE packer's backend names (dctpu/kernels/api.py pack)
 RICE_PACK_BACKENDS = (None, "auto", "xla", "scan", "merge", "scatter", "pallas")
@@ -80,6 +81,20 @@ def candidate_z(x, history, cfg: CodecConfig, ci: int) -> torch.Tensor:
     pred, ti = cfg.candidates()[ci]
     coeffs = cfg.lpc_tables[ti].coeffs if pred == LPC else None
     return rice.zigzag(predict.residuals_for_candidate(x, history, pred, coeffs))
+
+
+def _per_candidate(cfg: CodecConfig, xbp, lpc):
+    """Each candidate's result of cfg.candidates(), in order: its row of
+    xbp() (DELTA, DOUBLE_DELTA; called once, when first needed) or
+    lpc(coeffs) of its table."""
+    shift = None
+    for pred, ti in cfg.candidates():
+        if pred == LPC:
+            yield lpc(cfg.lpc_tables[ti].coeffs)
+        else:
+            if shift is None:
+                shift = xbp()
+            yield shift[0 if pred == DELTA else 1]
 
 
 def _first_min(cost: torch.Tensor) -> torch.Tensor:
@@ -101,32 +116,26 @@ def select_blocks(
     half of the reference's encode_blocks. Returns (choice, k), each [B]
     int32; k is 0 for VERTICAL.
 
-    RICE: the exact (k, bits) per candidate from K6's x forms, which
-    derive the residuals from x (one DELTA + DOUBLE_DELTA launch, one LPC
-    launch per LPC candidate), then the candidate with the fewest bits.
-    VERTICAL: the candidate with the smallest sum of bit lengths. Every
-    backend name takes this path."""
+    RICE: the exact (k, bits) per candidate from K6's x forms, then the
+    candidate with the fewest bits. VERTICAL: the candidate with the
+    smallest sum of bit lengths, from VC's x forms. Both read only x: one
+    DELTA + DOUBLE_DELTA launch and one LPC launch per LPC candidate.
+    Every backend name takes this path."""
     L = x.shape[1]
     if cfg.coder == "vertical":
-        valid = torch.arange(L, device=x.device)[None, :] < n.to(torch.int64)[:, None]
-        cost = torch.stack([
-            vertical_selection_cost(candidate_z(x, history, cfg, ci), valid)
-            for ci in range(len(cfg.candidates()))
-        ])
-        choice = _first_min(cost)
+        choice = _first_min(torch.stack(list(_per_candidate(
+            cfg,
+            lambda: vertical_cost_xbp(x, history, n, L),
+            lambda c: vertical_cost_lpc(x, history, n, c, L),
+        ))))
         return choice.to(torch.int32), torch.zeros_like(choice, dtype=torch.int32)
 
-    shift = None
     ks, bits = [], []
-    for pred, ti in cfg.candidates():
-        if pred == LPC:
-            totals = rice_totals_lpc(
-                x, history, n, cfg.lpc_tables[ti].coeffs, L, cfg.k_max
-            )
-        else:
-            if shift is None:
-                shift = rice_totals_xbp(x, history, n, L, cfg.k_max)
-            totals = shift[0 if pred == DELTA else 1]
+    for totals in _per_candidate(
+        cfg,
+        lambda: rice_totals_xbp(x, history, n, L, cfg.k_max),
+        lambda c: rice_totals_lpc(x, history, n, c, L, cfg.k_max),
+    ):
         k_c, bits_c = rice.best_k(totals)
         ks.append(k_c)
         bits.append(bits_c)

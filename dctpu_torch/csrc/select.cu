@@ -13,7 +13,9 @@
 // backend="reduce"; here it is K2's code). K2 has a form that derives one
 // LPC candidate's residuals from the raw samples in the kernel, K6 one for
 // DELTA + DOUBLE_DELTA and one for LPC; the TPU kernels left LPC to XLA,
-// because s64 was wrong in Mosaic.
+// because s64 was wrong in Mosaic. The file also holds VC, the
+// coder="vertical" selection cost, a lean kernel of its own beside the
+// template (below it) that shares the row staging and the residuals.
 //
 // The arithmetic. With bl the bit length of z, C[b] = #{samples with bl =
 // b} and S_j[b] = #{samples with bl = b whose bit b-1-j is set} (j = 1..3,
@@ -192,6 +194,85 @@ select_lengths_kernel(const int32_t* __restrict__ src,
   }
 }
 
+// VC: the coder="vertical" selection cost (FORMAT §2.2), out [B, NC]: per
+// block and candidate, the sum of the bit lengths of its valid zigzag
+// residuals, Σ_b b·C[b]. Replaces no Pallas kernel: the reference computes
+// it in XLA (dctpu/kernels/vertical_xla.py vertical_selection_cost, over
+// dctpu/codec/encode.py _cand_z_fn). The cost needs no histogram: each
+// lane adds its samples' bit lengths in a register, so the template's
+// shared atomics, per-row bins and per-k epilogue drop out. The rows go as
+// in the template (warp w takes rows w, w + kRowWarps, ...; the residuals
+// from the staged row); then a shuffle sum per warp and one __syncthreads
+// to add the warps. Bound by the one read of x (~3 ops per sample and
+// candidate besides the residual). The sum is at most 32 * block_len,
+// which the wrapper keeps under 2^31.
+template <Src SRC>
+__global__ void __launch_bounds__(kRowWarps * 32)
+vertical_cost_kernel(const int32_t* __restrict__ x,
+                     const int32_t* __restrict__ hist,
+                     const int32_t* __restrict__ n,
+                     int32_t* __restrict__ out, int block_len, Lpc lpc) {
+  static_assert(SRC != Src::kZigzag, "VC derives the residuals from x");
+  constexpr int NC = SRC == Src::kDeltas ? 2 : 1;
+  __shared__ int32_t stage[kRowWarps][4 + kSub];
+  __shared__ int red[kRowWarps][NC];
+
+  const int blk = blockIdx.x;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int nb = max(0, min(n[blk], block_len));
+  const int32_t* row = x + static_cast<size_t>(blk) * block_len;
+
+  int cost[NC];
+#pragma unroll
+  for (int c = 0; c < NC; ++c) cost[c] = 0;
+
+  const int rows = (nb + kSub - 1) / kSub;
+  for (int s = warp; s < rows; s += kRowWarps) {
+    const int base = s * kSub;
+    int32_t* st = stage[warp];
+    stage_row(st, row, hist + blk * 4, base, nb);
+#pragma unroll
+    for (int i = 0; i < kWarps; ++i) {
+      const int j = 4 + 32 * i + lane;
+      const bool valid = base + 32 * i + lane < nb;
+#pragma unroll
+      for (int c = 0; c < NC; ++c) {
+        const int pred = SRC == Src::kLpc ? kLpc : c;  // kDeltas: c = 0, 1
+        const uint32_t r = residual(pred, lpc, st, j);
+        cost[c] += valid ? bit_length(zigzag(static_cast<int32_t>(r))) : 0;
+      }
+    }
+    __syncwarp();  // stage is rewritten by the next row
+  }
+
+#pragma unroll
+  for (int c = 0; c < NC; ++c) {
+    int v = cost[c];
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+    if (lane == 0) red[warp][c] = v;
+  }
+  __syncthreads();
+  if (threadIdx.x < NC) {
+    int v = 0;
+#pragma unroll
+    for (int w = 0; w < kRowWarps; ++w) v += red[w][threadIdx.x];
+    out[static_cast<size_t>(blk) * NC + threadIdx.x] = v;
+  }
+}
+
+template <Src SRC>
+int launch_cost(const void* x, const void* hist, const void* n, void* out,
+                int num_blocks, int block_len, Lpc lpc, void* stream) {
+  vertical_cost_kernel<SRC>
+      <<<num_blocks, kRowWarps * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+          static_cast<const int32_t*>(x), static_cast<const int32_t*>(hist),
+          static_cast<const int32_t*>(n), static_cast<int32_t*>(out),
+          block_len, lpc);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <Src SRC, bool VERT>
 int launch(const void* src, const void* hist, const void* n, void* out,
            int num_blocks, int block_len, int k_max, Lpc lpc, void* stream) {
@@ -270,4 +351,24 @@ extern "C" int dct_rice_totals_lpc(const void* x, const void* hist,
   return dct::launch<Src::kLpc, false>(x, hist, n, out, num_blocks,
                                        block_len, k_max, Lpc{c0, c1, c2, c3},
                                        stream);
+}
+
+// VC, DELTA + DOUBLE_DELTA form: x [B, L] raw int32 samples, hist [B, 4] ->
+// out [B, 2] int32, the sums of the bit lengths (candidate order DELTA,
+// DOUBLE_DELTA).
+extern "C" int dct_vertical_cost_xbp(const void* x, const void* hist,
+                                     const void* n, void* out, int num_blocks,
+                                     int block_len, void* stream) {
+  return dct::launch_cost<Src::kDeltas>(x, hist, n, out, num_blocks,
+                                        block_len, Lpc{}, stream);
+}
+
+// VC, LPC form: x [B, L] raw int32 samples, hist [B, 4] and one table's Q16
+// coefficients c0..c3 -> out [B] int32, that LPC candidate's sums.
+extern "C" int dct_vertical_cost_lpc(const void* x, const void* hist,
+                                     const void* n, void* out, int num_blocks,
+                                     int block_len, int c0, int c1, int c2,
+                                     int c3, void* stream) {
+  return dct::launch_cost<Src::kLpc>(x, hist, n, out, num_blocks, block_len,
+                                     Lpc{c0, c1, c2, c3}, stream);
 }

@@ -11,6 +11,7 @@ and the plain-torch stages around them.
   exc_extract  K8      VERTICAL exceptions at given widths (backend="pallas")
   transpose    K9      bit planes of 32-word groups, disk order (backend="pallas")
   reconstruct  R       unzigzag + predictor inverse (decode)
+  vertical_cost VC     VERTICAL selection cost (coder="vertical" selection)
   vertical, ragged: plain torch (XLA code on the TPU)
   args: the kernel arguments several wrappers share
 """

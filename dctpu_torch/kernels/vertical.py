@@ -2,8 +2,8 @@
 
 The counterpart of ``dctpu/kernels/vertical_xla.py``: sub-block geometry,
 the 32x32 bit transpose, the exceed table and width rule, the exact word
-count used by adaptive selection, the bit-length cost used by
-coder="vertical" selection, the region assembly after the emit kernel,
+count used by adaptive selection, the bit-length cost of coder="vertical"
+selection (VC's twin), the region assembly after the emit kernel,
 and the sync-entry parse.
 
 Layout of a staged payload row (what the emission writes, and the input
@@ -106,7 +106,7 @@ def select_width(E: torch.Tensor, pw: torch.Tensor):
 def vertical_selection_cost(z: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     """coder="vertical" predictor-selection proxy (FORMAT §2.2): the sum of
     the bit lengths of the valid z, [B] int64. One dense pass (XLA on the
-    TPU too)."""
+    TPU); the plain twin of VC (``kernels/vertical_cost.py``)."""
     return torch.where(valid, bitlen(z), 0).sum(-1)
 
 

@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K9 and R (and the x forms of K2, K3, K5a and K6, the
+"""The CUDA kernels K1-K9, R and VC (and the x forms of K2, K3, K5a and K6, the
 words forms of K4 and K5b, and K9's disk-order planes) against their plain
 twins, on the card, the launches of the round trips, and the sharded path
 over two shards of the card with the device guard of every launch.
@@ -37,6 +37,7 @@ from dctpu_torch.kernels import (
     unpack,
     vdec,
     vemit,
+    vertical_cost,
 )
 from dctpu_torch.kernels.vertical import sub_rows
 
@@ -157,6 +158,20 @@ def test_rice_kernels_match_twins_on_card(cuda, L):
           (unpack.rice_unpack_words_plain(flat, start, wc, k, n, L),))
 
 
+@pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
+def test_vertical_cost_matches_twins_on_card(cuda, L):
+    """VC's two forms, with histories at the int32 extremes, every default
+    table and the wrap table."""
+    _, x, h, n, _ = (t.to(cuda) for t in _inputs(L, 13))
+    h[::5] = torch.tensor([-(2**31), 2**31 - 1, -(2**31), 2**31 - 1],
+                          dtype=torch.int32)
+    _same((vertical_cost.vertical_cost_xbp(x, h, n, L),),
+          (vertical_cost.vertical_cost_xbp_plain(x, h, n, L),))
+    for coeffs in TABLES:
+        _same((vertical_cost.vertical_cost_lpc(x, h, n, coeffs, L),),
+              (vertical_cost.vertical_cost_lpc_plain(x, h, n, coeffs, L),))
+
+
 def test_emit_rows_refuse_host_arguments_on_card(cuda):
     """The x-form emissions refuse a per-block argument left on the host
     rather than hand its pointer to the kernel."""
@@ -210,6 +225,21 @@ def test_rice_select_launches_x_forms_on_card(cuda):
         fn.launches = 0
     got = encode.select_blocks(*(a.to(cuda) for a in t), cfg)
     assert [fn.launches for fn in counted] == [0, 1, len(cfg.candidates()) - 2]
+    _same(got, encode.select_blocks(*t, cfg))
+
+
+def test_vertical_select_launches_vc_on_card(cuda):
+    """The vertical selection launches VC's DELTA + DOUBLE_DELTA form once
+    and its LPC form once per LPC candidate, and selects as the twins do
+    on the CPU."""
+    cfg = CodecConfig(coder="vertical")
+    streams, _, _ = synth_corpus(4, 9000, seed=3, cumulative_frac=0.5)
+    t = [torch.from_numpy(a) for a in api.build_blocks(streams, cfg.block_len)[:3]]
+    counted = (vertical_cost.vertical_cost_xbp, vertical_cost.vertical_cost_lpc)
+    for fn in counted:
+        fn.launches = 0
+    got = encode.select_blocks(*(a.to(cuda) for a in t), cfg)
+    assert [fn.launches for fn in counted] == [1, len(cfg.candidates()) - 2]
     _same(got, encode.select_blocks(*t, cfg))
 
 

@@ -23,7 +23,7 @@ from dctpu.constants import DELTA, DOUBLE_DELTA, LPC
 from dctpu.kernels.select_pallas import rice_totals_pallas
 from dctpu_torch.codec import api, encode
 from dctpu_torch.config import DEFAULT_LPC_TABLES, from_reference
-from dctpu_torch.kernels import rice_totals
+from dctpu_torch.kernels import rice_totals, vertical
 from tests.test_torch_select import _corpus
 
 # every product is 2**62 on the -2**31 samples of row 0: the int64 sum wraps
@@ -112,20 +112,25 @@ def test_rice_select_matches_reference(rng, name):
 
 
 def test_rice_select_computes_no_candidate_z(rng, monkeypatch):
-    """The rice selection takes every candidate's totals from the raw
-    samples; the vertical selection still derives the zigzag residuals."""
+    """The rice and the vertical selections take every candidate's totals
+    or cost from the raw samples (K6's and VC's x forms): neither derives
+    the zigzag residuals, and the vertical one runs no plain cost outside
+    VC's twins."""
     cfg = from_reference(dataclasses.asdict(RefConfig(block_len=512)))
+    vcfg = dataclasses.replace(cfg, coder="vertical")
     t = _torch(*api.build_blocks(_corpus("mixed", rng), 512)[:3])
     want = encode.select_blocks(*t, cfg)
+    want_v = encode.select_blocks(*t, vcfg)
 
     def refuse(*args):
-        raise AssertionError("candidate_z called")
+        raise AssertionError("plain stage called")
 
     monkeypatch.setattr(encode, "candidate_z", refuse)
+    monkeypatch.setattr(vertical, "vertical_selection_cost", refuse)
     for g, w in zip(encode.select_blocks(*t, cfg), want):
         assert torch.equal(g, w)
-    with pytest.raises(AssertionError, match="candidate_z called"):
-        encode.select_blocks(*t, dataclasses.replace(cfg, coder="vertical"))
+    for g, w in zip(encode.select_blocks(*t, vcfg), want_v):
+        assert torch.equal(g, w)
 
 
 def _zeros():
