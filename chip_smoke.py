@@ -4,7 +4,9 @@
 Run from the repository root: ``python3 chip_smoke.py``. It
 
   1. prints the card (nvidia-smi name and power limit) and builds the CUDA
-     kernels from dctpu_torch/csrc (one nvcc per source, in parallel);
+     kernels from dctpu_torch/csrc (one nvcc per source, in parallel), with
+     each kernel's ptxas registers and R's SASS (cuobjdump), whose walk it
+     traces from x_(t-1) to x_t;
   2. holds each kernel K1-K9 and R against its plain torch twin on the
      card, bit-exact, at 256 x 4096, 8192 x 4096, 256 x 200
      (block_len % 128 != 0) and 32 x 12000 (rows too large for K5a's
@@ -21,8 +23,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      samples with every candidate of those tables chosen ("K3") and from
      zigzag values ("K3-z"), K5a in its two, likewise ("K5a", the RICE
      rows from the raw samples at every k in 0..30, and "K5a-z"), K9's
-     disk-order planes, R (the reconstruction) on every predictor and
-     table, with histories at the int32 extremes, and the decode kernels
+     disk-order planes, R (the reconstruction) in its range form (each
+     block's row read from one of two shuffled coder groups) on every
+     predictor and table, with histories at the int32 extremes, timed also
+     with every block on one predictor at 8192 and 512 blocks beside
+     torch.cumsum as DELTA's yardstick, and the decode kernels
      K4 and K5b on the compact words of their blocks, laid out in a
      shuffled order between words of no block, a few RICE blocks cut
      short, and a bad VERTICAL sync entry that must raise;
@@ -35,15 +40,17 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      VC-xbp once and VC-lpc once per LPC candidate on the vertical paths,
      never on the others;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
-     paths; R once per coder group in every decode, K5b once per RICE
-     group and K4 once per VERTICAL group; K3 once per VERTICAL group and
-     its z form never; K5a's x form once per RICE group and its z form
-     never), and the plain torch stages that R, K3, K4, K5a, K5b and VC
+     paths; R once per decode range (here one) in every decode, K5b once
+     per RICE group and K4 once per VERTICAL group; K3 once per VERTICAL
+     group and its z form never; K5a's x form once per RICE group and its
+     z form never), and the plain torch stages that R, K3, K4, K5a, K5b and VC
      replace never run (the LPC recurrence loop, the region assembly, the
      winner's residuals in an emission, the staging of the decode's
      rows, the VERTICAL selection cost), with the device segments each compress obtained from
-     the allocator (and, for the adaptive path, the stage times of a
-     second compress on the cached segments); then, on the same corpus,
+     the allocator and the peak device bytes per input byte of each
+     compress and decompress (and, for the adaptive path, the stage times
+     of a second compress on the cached segments); that the default pass
+     keeps the corpus in one range on this card; then, on the same corpus,
      the adaptive selection under
      backend="reduce" (K7 once per candidate on the torch residuals, K1
      and K2 never; equal to the default selection, which is the
@@ -65,7 +72,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      cuda:0] (two shards, four chunks), each frame byte-identical to the
      coder's default frame and each round trip bit-exact, with the
      counters set to 0 around each: every kernel of the coder's default
-     path once per block range and coder group, no plain stage; then
+     path once per block range and coder group (R once per range), no
+     plain stage; then
      compress_multihost with two processes on the card, 8 streams each,
      under the "allgather" and the "files" gather, for the rice and the
      adaptive config (process 0's frame byte-identical to the rice frame,
@@ -207,6 +215,33 @@ def scatter_blocks(flat, wc, seed, gap=3):
     return words, start, wc.clone()
 
 
+def split_groups(z, seed):
+    """z's rows dealt at random to two coder groups, each in a shuffled
+    order -> (z of the first group, z of the second, src int32), on z's
+    device: block b's row is first[src[b]] for src[b] >= 0 and
+    second[-1 - src[b]] for src[b] < 0, the layout R's range form reads
+    (blocks 0 and 1 fall in different groups)."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    B = z.shape[0]
+    in_first = rng.random(B) < 0.5
+    in_first[:2] = True, False
+    src = np.empty(B, np.int32)
+    parts = []
+    for sel, first in ((in_first, True), (~in_first, False)):
+        blocks = np.nonzero(sel)[0]
+        order = rng.permutation(blocks.size)  # row order[i] holds blocks[i]
+        src[blocks] = order if first else -1 - order
+        rows = torch.empty((blocks.size, z.shape[1]), dtype=z.dtype,
+                           device=z.device)
+        rows[torch.from_numpy(order).to(z.device)] = z[
+            torch.from_numpy(blocks).to(z.device)]
+        parts.append(rows)
+    return parts[0], parts[1], torch.from_numpy(src).to(z.device)
+
+
 def bound(nbytes: float, ops: float):
     """(least ms on the card, what bounds it) for this many bytes moved
     (each input read once, each output written once) and integer ops."""
@@ -273,7 +308,7 @@ def work(key, B, L, n, b, rows_words, preds):
         "K3": (4 * B * L + 16 * B + 8 * B + 20 * rows_words["cands"] + rows_out,
                v * 64 + pred_ops(n, L, preds["K3"])),
         "K3-z": (4 * B * L + 4 * B + rows_out, v * 64),
-        "R": (8 * B * L + 16 * B + 12 * B + 16 * rows_words["tables"],
+        "R": (8 * B * L + 16 * B + 16 * B + 16 * rows_words["tables"],
               pred_ops(n, L, preds["R"])),
         "K4": (4 * rows_words["K4"] + 16 * B + 4 * B + 4 * B * L,
                3 * 128 * int(b.sum())),
@@ -338,21 +373,33 @@ RECS = {
 }
 
 
-def recon_scaling(z, n, tidx, hist, coeffs) -> None:
-    """R's time with every block on one predictor, at B and at B / 16
-    blocks: a time that moves with neither is the per-warp chain of the
-    walk, not device bandwidth and not the LPC arithmetic."""
+def recon_scaling(z, n, tidx, hist, coeffs) -> dict:
+    """R's time with every block on one predictor, at B and at 512 blocks:
+    a time that moves with neither is the chain of the walk, not device
+    bandwidth and not the LPC arithmetic. Beside it, the DELTA case's
+    yardstick: one torch.cumsum(dtype=torch.int32) over the same z, a
+    prefix sum over the same bytes (the port never calls it). Returns
+    {"ms_by_predictor": ..., "library_ms": the cumsum at B blocks}."""
     import torch
 
     from dctpu_torch.kernels.reconstruct import reconstruct
 
-    for rows in (z.shape[0], z.shape[0] // 16):
-        for pred in (0, 2):
+    out = {"ms_by_predictor": {}}
+    for rows in (z.shape[0], 512):
+        for pred in (0, 1, 2):
             p = torch.full((rows,), pred, dtype=torch.int32, device=z.device)
             args = (z[:rows], n[:rows], p, tidx[:rows], hist[:rows], coeffs)
             ms = time_ms(lambda: reconstruct(*args), 10)  # noqa: B023
+            out["ms_by_predictor"][f"{rows}x{z.shape[1]} predictor {pred}"] = ms
             print(f"  R {rows}x{z.shape[1]}, every block predictor {pred}: "
                   f"{ms:.4f} ms", flush=True)
+        zr = z[:rows]
+        ms = time_ms(lambda: torch.cumsum(zr, 1, dtype=torch.int32), 10)  # noqa: B023
+        if rows == z.shape[0]:
+            out["library_ms"] = ms
+        print(f"  torch.cumsum(dtype=int32) over the same z, {rows}x"
+              f"{z.shape[1]} (DELTA's yardstick): {ms:.4f} ms", flush=True)
+    return out
 
 
 def check_kernels(dev):
@@ -390,7 +437,10 @@ def check_kernels(dev):
     )
     from dctpu_torch.kernels.transpose import bit_planes32, bit_planes32_plain
     from dctpu_torch.kernels import ragged
-    from dctpu_torch.kernels.reconstruct import reconstruct, reconstruct_plain
+    from dctpu_torch.kernels.reconstruct import (
+        reconstruct,
+        reconstruct_range_plain,
+    )
     from dctpu_torch.kernels.unpack import (
         rice_unpack_words,
         rice_unpack_words_plain,
@@ -428,7 +478,8 @@ def check_kernels(dev):
     # block by block, K5a at k = i % 31 on block i; R gives block i
     # predictor i % 3 and table i // 3 % T, so that block 14 runs the wrap
     # table, here on -2**31 samples (a -2**31 history and residuals,
-    # z = 0xFFFFFFFF)
+    # z = 0xFFFFFFFF), and runs in its range form: each block's z row read
+    # from one of two coder groups, in shuffled orders (split_groups)
     tables = [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP_COEFFS]
     extremes = torch.tensor([-(2**31), 2**31 - 1] * 2, dtype=torch.int32)
     for si, (B, L) in enumerate(SHAPES):
@@ -452,6 +503,7 @@ def check_kernels(dev):
         hist_r[14] = -(2**31)
         zr = z.clone()
         zr[14] = -1
+        z_first, z_second, src = split_groups(zr, seed=400 + si)
         chosen = torch.tensor([p for p, _ in cands], device=dev)[choice.long()]
         preds = {"K3": chosen, "K5a": chosen, "R": pred_r}
         payload, bit_len = rice_pack_plain(z, k, n, L)
@@ -522,9 +574,11 @@ def check_kernels(dev):
                    lambda: exc_extract_plain(zs, b_exc)),
             "K9": (lambda: (bit_planes32(groups),),
                    lambda: (bit_planes32_plain(groups),)),
-            "R": (lambda: (reconstruct(zr, n, pred_r, tidx, hist_r, coeffs),),
-                  lambda: (reconstruct_plain(zr, n, pred_r, tidx, hist_r,
-                                             coeffs),)),
+            "R": (lambda: (reconstruct(z_first, n, pred_r, tidx, hist_r, coeffs,
+                                       src=src, z1=z_second),),
+                  lambda: (reconstruct_range_plain(z_first, n, pred_r, tidx,
+                                                   hist_r, coeffs, src,
+                                                   z_second),)),
         }
         for key, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -568,10 +622,11 @@ def check_kernels(dev):
                       f"{r['plain_ms']:.3f} ms, bound {r['bound_ms']:.4f} ms "
                       f"({r['bound_by']}: {nbytes} B, {ops} ops)", flush=True)
                 if key == "R":
-                    recon_scaling(zr, n, tidx, hist_r, coeffs)
+                    r.update(recon_scaling(zr, n, tidx, hist_r, coeffs))
         del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload
         del r_words, r_start, r_count, v_words, v_start, v_count
         del zs, b_exc, groups, emitted, choice, pred_r, tidx, hist_r, zr, preds
+        del z_first, z_second, src
         torch.cuda.empty_cache()
     return recs
 
@@ -785,6 +840,20 @@ def plain_calls():
         encode._emit_staged = staged
 
 
+@contextlib.contextmanager
+def peak_bytes(dev, out: dict, key: str):
+    """out[key] = the peak device bytes allocated inside the block above
+    those allocated when it starts (torch.cuda.max_memory_allocated)."""
+    import torch
+
+    torch.cuda.synchronize(dev)
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    yield
+    torch.cuda.synchronize(dev)
+    out[key] = torch.cuda.max_memory_allocated(dev) - before
+
+
 def segments() -> int:
     """Device memory segments the caching allocator has obtained so far
     (one cudaMalloc each)."""
@@ -820,14 +889,17 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     enc_ms, dec_ms = {}, {}
     torch.cuda.synchronize()
     seg0 = segments()
+    peak = {}
     with plain_calls() as plain:
         t0 = time.perf_counter()
-        frame = compress(streams, cfg, ids, cads, device=dev, stage_ms=enc_ms,
-                         backend=backend)
+        with peak_bytes(dev, peak, "compress"):
+            frame = compress(streams, cfg, ids, cads, device=dev,
+                             stage_ms=enc_ms, backend=backend)
         seg1 = segments()
         data = write_frame(frame)
         t1 = time.perf_counter()
-        out = decompress(read_frame(data), device=dev, stage_ms=dec_ms)
+        with peak_bytes(dev, peak, "decompress"):
+            out = decompress(read_frame(data), device=dev, stage_ms=dec_ms)
         t2 = time.perf_counter()
     launches = read_counters()
 
@@ -847,6 +919,9 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     print(f"{name} path encode stages (CUDA events, ms; {seg1 - seg0} new "
           "device segments): "
           + json.dumps({k: round(v, 3) for k, v in enc_ms.items()}))
+    print(f"{name} path peak device bytes per input byte (max_memory_allocated "
+          "above the bytes allocated before the call): "
+          + json.dumps({k: v / raw_bytes for k, v in peak.items()}))
     if (coder, backend) == ("adaptive", None):
         # the same compress again, on the allocator's cached segments
         again, seg2 = {}, segments()
@@ -866,7 +941,6 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     extra = [k for k in NEVER.get((cfg.coder, backend), ()) if launches[k]]
     if extra:
         fail(f"kernels launched on the {name} path that it replaces: {extra}")
-    groups = int((hist > 0).sum())
     staged = backend is not None
     staged_vert = int(staged and hist[1] > 0)
     want_plain = {"reconstruct_lpc": 0, "assemble_rows": staged_vert,
@@ -874,9 +948,9 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
                   "pad_payload": 0, "vertical_selection_cost": 0,
                   "staged_flip": 0}
     if (launches["R"], launches["K3"], plain) != (
-            groups, 0 if staged else int(hist[1] > 0), want_plain):
-        fail(f"R launched {launches['R']} times (want {groups}, one per coder "
-             f"group), K3 {launches['K3']}, plain stages {plain} (want "
+            1, 0 if staged else int(hist[1] > 0), want_plain):
+        fail(f"R launched {launches['R']} times (want 1, one per decode "
+             f"range), K3 {launches['K3']}, plain stages {plain} (want "
              f"{want_plain})")
     if (launches["K5b"], launches["K4"]) != (int(hist[0] > 0), int(hist[1] > 0)):
         fail(f"K5b launched {launches['K5b']} times (want one per RICE group), "
@@ -902,6 +976,22 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
         fail(f"K1 launched {launches['K1']} times (want 1), K2's LPC form "
              f"{launches['K2-lpc']} (want {n_lpc})")
     return data, launches, t1 - t0
+
+
+def one_range_check(dev) -> None:
+    """The default pass (chunk_blocks None) on this card: the blocks of a
+    range by api.range_blocks from the card's total memory; the 128 MiB
+    corpus must be one range (each path above launched R once)."""
+    from dctpu_torch.codec import api
+
+    total = api.device_memory([dev])
+    blocks = api.range_blocks(None, total, BENCH_LEN)
+    print(f"default pass on this card: ranges of {blocks} blocks of "
+          f"{BENCH_LEN} samples ({total} bytes of device memory, "
+          f"{api.DEVICE_BYTES_PER_SAMPLE} bytes a sample, 1/"
+          f"{api.DEVICE_SHARE} of it)", flush=True)
+    if blocks < BENCH_BLOCKS:
+        fail(f"the {BENCH_BLOCKS}-block corpus is more than one default range")
 
 
 def reduce_select_check(dev, streams) -> dict:
@@ -1056,8 +1146,8 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     """The launches of a sharded round trip whose encode and decode each
     cover these block ranges, one pass per range: every kernel of the
     coder's default path once per range and coder group (K2, K6 and
-    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), and none
-    of the z forms, K7, K8 or K9."""
+    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R once per
+    range, and none of the z forms, K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
@@ -1068,7 +1158,7 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
         "K2-lpc": r * n_lpc * adaptive, "K3": vert, "K3-z": 0, "K4": vert,
         "K5a": rice, "K5a-z": 0, "K5b": rice, "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
-        "K8": 0, "K9": 0, "R": rice + vert, "VC-xbp": r * vert_sel,
+        "K8": 0, "K9": 0, "R": r, "VC-xbp": r * vert_sel,
         "VC-lpc": r * n_lpc * vert_sel,
     }
 
@@ -1419,6 +1509,89 @@ def ptxas_report(log: str) -> dict:
     return out
 
 
+def sass_report(lib: Path, kernel: str = "recon_kernel") -> None:
+    """Writes the SASS of `kernel` (cuobjdump -sass of the CUDA toolkit,
+    where it is installed) beside the library as <kernel>.sass, and prints
+    its instruction count by opcode."""
+    import collections
+    import re
+
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not tool.exists():
+        print(f"  SASS of {kernel}: no cuobjdump at {tool}", flush=True)
+        return
+    res = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True,
+                         text=True)
+    body, inside = [], False
+    for line in res.stdout.splitlines():
+        if "Function :" in line:
+            inside = kernel in line
+        elif inside and re.search(r"/\*[0-9a-f]{4,}\*/", line):
+            body.append(line.strip())
+    (lib.parent / f"{kernel}.sass").write_text("\n".join(body) + "\n")
+    instrs = [re.sub(r"^@!?U?P\w+\s+", "", line.split("*/", 1)[1].split(";")[0]
+                     .strip()) for line in body]
+    ops = collections.Counter(i.split()[0] for i in instrs)
+    print(f"  SASS of {kernel}: {len(body)} instructions "
+          f"({lib.parent / f'{kernel}.sass'}); by opcode: "
+          + json.dumps(dict(ops.most_common())), flush=True)
+    steps = list(walk_chains(instrs))
+    chains = collections.Counter(chain for chain, _ in steps)
+    print(f"  SASS of {kernel}, the walk's steps (from the x_(t-1) that one "
+          "LEA.HI by 16 writes to the next one's x_t, straight-line code): "
+          + (json.dumps({" -> ".join(c): k for c, k in chains.items()})
+             if chains else "no such step found")
+          + (f"; {sum(len(ops) for _, ops in steps) / len(steps):.2f} "
+             "instructions a step, " + json.dumps(dict(collections.Counter(
+                 op for _, ops in steps for op in ops).most_common(8)))
+             if steps else ""), flush=True)
+
+
+def walk_chains(instrs):
+    """The dependent instructions from x_(t-1) to x_t of each step of R's
+    walk that lies in straight-line SASS: a step ends in the LEA.HI that
+    shifts the accumulator by 16 and adds the residual; the chain is the
+    longest path of register and carry-predicate dependences from one such
+    LEA.HI to the next. Yields (the chain's opcodes, the opcodes of every
+    instruction from the one LEA.HI to the next)."""
+    import re
+
+    def reg_span(r, n):  # r and the n - 1 registers after it
+        return [r] + ([f"R{int(r[1:]) + k}" for k in range(1, n)]
+                      if re.fullmatch(r"R\d+", r) else [])
+
+    defs, reads = {}, []
+    for i, ins in enumerate(instrs):
+        op, _, rest = ins.partition(" ")
+        regs = [a.strip().lstrip("-!|").split(".")[0]
+                for a in rest.split(",") if a.strip()]
+        out, src = regs[:1], regs[1:]
+        if op.startswith(("ST", "BAR", "BRA", "EXIT")):
+            out, src = [], regs  # no register result
+        if op.startswith(("IADD3", "LOP3", "ISETP", "PLOP3")) and ".X" not in op:
+            while src and re.fullmatch(r"P\d", src[0]):
+                out.append(src.pop(0))  # carry or predicate outputs
+        width = 4 if ".128" in op else 2 if (".64" in op or ".WIDE" in op) else 1
+        if out:
+            out = reg_span(out[0], width) + out[1:]
+        if ".WIDE" in op and len(src) >= 3:  # the 64-bit addend
+            src = src[:2] + reg_span(src[2], 2)
+        reads.append({defs[r] for r in src if r in defs})
+        for r in out:
+            defs[r] = i
+    ends = [i for i, ins in enumerate(instrs)
+            if ins.startswith("LEA.HI ") and ins.rstrip().endswith("0x10")]
+    for a, b in zip(ends, ends[1:]):
+        best = {a: []}  # instruction -> longest chain from a to it
+        for i in range(a + 1, b + 1):
+            prev = [best[j] for j in reads[i] if j in best]
+            if prev:
+                best[i] = max(prev, key=len) + [instrs[i].split()[0]]
+        if b in best:
+            yield (tuple(best[b]),
+                   [ins.split()[0] for ins in instrs[a + 1:b + 1]])
+
+
 def main() -> int:
     try:
         import torch
@@ -1447,6 +1620,7 @@ def main() -> int:
     ptxas = ptxas_report((lib.parent / "build.log").read_text())
     for name, info in ptxas.items():
         print(f"  ptxas: {name}: {info}")
+    sass_report(lib)
     dev = torch.device("cuda:0")
     torch.cuda.set_device(dev)
 
@@ -1459,6 +1633,7 @@ def main() -> int:
     for coder in CODERS:
         frames[coder], by_path[coder], enc_s[coder] = run_path(
             dev, coder, streams, ids, cads)
+    one_range_check(dev)
     by_path["adaptive/reduce-select"] = reduce_select_check(dev, streams)
     for coder in ("vertical", "rice"):
         by_path[f"{coder}/z-form-emit"] = zform_emit_check(dev, streams, coder)

@@ -18,6 +18,10 @@ Layers, mirroring ``dctpu``:
   cli/     — encode / decode / verify, ``--sharded``
              (``python -m dctpu_torch.cli.main``)
 
+The package exports the reference's format constants (``BLOCK_LEN_DEFAULT``,
+``DELTA``, ...) and ``dctpu_torch.codec`` its ``compress`` and
+``decompress``, as ``dctpu`` and ``dctpu.codec`` do.
+
 All three coders are ported: ``CodecConfig(coder="rice")`` (the default),
 ``"vertical"`` and ``"adaptive"`` (the CLI default), through
 ``dctpu_torch.codec.api.compress`` and ``decompress``, with the
@@ -27,6 +31,16 @@ benchmark. The compile cache and the TPU timing helpers of
 ``dctpu/utils`` are JAX-only and have no counterpart.
 """
 
+from dctpu_torch.constants import (  # noqa: F401
+    BLOCK_LEN_DEFAULT,
+    DELTA,
+    DOUBLE_DELTA,
+    ESCAPE_Q,
+    K_MAX,
+    LPC,
+    MAX_CODE_BITS,
+    RAW_BITS,
+)
 from dctpu_torch.config import CodecConfig, DEFAULT_LPC_TABLES, LpcTable  # noqa: F401
 
 __version__ = "0.1.0"

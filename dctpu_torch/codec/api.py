@@ -10,10 +10,13 @@ back once; decode does the reverse.
 Encode and decode both reduce to one range of contiguous blocks at a time
 (:func:`encode_range`, :func:`decode_range`): the compact words of a range
 are its blocks' words in block order (FORMAT §2.1), so ranges concatenate
-into the frame. ``chunk_blocks=None`` (the default) runs the whole batch as
-one range; an int bounds the blocks per pass, as the reference's
-``chunk_blocks`` does, and gives the same frame. ``dctpu_torch.dist``
-splits each range once more over a list of devices.
+into the frame. An int ``chunk_blocks`` bounds the blocks per pass, as the
+reference's ``chunk_blocks`` does, and gives the same frame.
+``chunk_blocks=None`` (the default) runs the whole batch as one range on
+the CPU, and on a card ranges of as many blocks as fit a fixed share of
+its memory (:func:`range_blocks`): up to 32,000 blocks of 4096 samples
+(500 MiB) a range on an H100. ``dctpu_torch.dist`` splits each range once
+more over a list of devices.
 
 ``stage_ms``: pass a dict to have each stage's time added to it in
 milliseconds, measured with CUDA events on a CUDA device (the device
@@ -40,6 +43,14 @@ from dctpu_torch.kernels.pack import padded_words
 from dctpu_torch.kernels.vdec import raise_if_bad
 
 DEFAULT_CHUNK_BLOCKS = 2048  # the reference's, and the sharded paths' default
+# The default pass's bound on device memory (range_blocks): a range may take
+# 1 / DEVICE_SHARE of the card's total memory, at DEVICE_BYTES_PER_SAMPLE
+# bytes a sample. The most measured is the staged emission's compress,
+# 26.2 bytes per input byte (vertical, backend="pallas"; the default paths
+# 4.4-5.3, every decompress 2.3; chip_smoke.py on an H100, PERF.md §7):
+# 105 bytes a sample, here with a margin of half again.
+DEVICE_BYTES_PER_SAMPLE = 160
+DEVICE_SHARE = 4
 # build_blocks takes the flat path below this mean stream length (samples):
 # the crossover of its two numpy paths on the CPU of an H100 host
 # (chip_smoke.py's host feed sweep, PERF.md §6)
@@ -193,6 +204,28 @@ def block_ranges(B: int, chunk_blocks: int | None) -> List[Tuple[int, int]]:
     if chunk_blocks < 1:
         raise ValueError(f"chunk_blocks must be positive, got {chunk_blocks}")
     return [(a, min(a + chunk_blocks, B)) for a in range(0, B, chunk_blocks)]
+
+
+def range_blocks(chunk_blocks: int | None, total_memory: int | None,
+                 block_len: int) -> int | None:
+    """Blocks per range: chunk_blocks when given; else None (one pass) off
+    the card (total_memory None), and on a card of total_memory bytes as
+    many blocks as fit 1 / DEVICE_SHARE of it at DEVICE_BYTES_PER_SAMPLE
+    bytes a sample. Total, not free, memory: the split is the same from
+    run to run."""
+    if chunk_blocks is not None or total_memory is None:
+        return chunk_blocks
+    per_block = DEVICE_SHARE * DEVICE_BYTES_PER_SAMPLE * block_len
+    return max(1, total_memory // per_block)
+
+
+def device_memory(devices) -> int | None:
+    """The least total memory of the devices in bytes, or None when one of
+    them is not a CUDA device."""
+    devices = [torch.device(d) for d in devices]
+    if any(d.type != "cuda" for d in devices):
+        return None
+    return min(torch.cuda.get_device_properties(d).total_memory for d in devices)
 
 
 def shard_ranges(b0: int, b1: int, ndev: int) -> List[Tuple[int, int, int]]:
@@ -363,6 +396,7 @@ def encode_frame(
     L = cfg.block_len
     x_h, n_h, hist_h, nb, first = build_blocks(streams, L)
     stages = [_Stages(stage_ms, d) for d in devices]
+    chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     parts = []
     for c0, c1 in block_ranges(x_h.shape[0], chunk_blocks):
         shards = shard_ranges(c0, c1, len(devices))
@@ -421,7 +455,8 @@ def compress(
     compress: every name gives the same frame and picks the kernels of
     each stage (``codec/encode.py``). A RICE group raises ValueError for a
     name the reference's packer does not know ("reduce", "bp", ...).
-    ``chunk_blocks`` bounds the blocks per pass (default: one pass)."""
+    ``chunk_blocks`` bounds the blocks per pass (default: one pass on the
+    CPU, :func:`range_blocks` on a card)."""
     cfg = cfg or CodecConfig()
     return encode_frame(streams, cfg, stream_ids, cadences, [device],
                         stage_ms, backend, chunk_blocks)
@@ -443,7 +478,7 @@ def decompress(
     the port has one decode path, K5b and K4 then R, and runs it for each
     of them. As in the reference, a RICE group raises ValueError for any
     other name. ``chunk_blocks`` bounds the blocks per pass (default: one
-    pass)."""
+    pass on the CPU, :func:`range_blocks` on a card)."""
     xs = decode_blocks_array(frame, [device], stage_ms, chunk_blocks, backend)
     return split_streams(xs, frame.streams)
 
@@ -509,7 +544,8 @@ def decode_range(
 ):
     """Blocks b0..b1 of the frame -> ([b1 - b0, L] decoded blocks, zeros
     past n, on coeffs' device; K4's flags for ``vdec.raise_if_bad``, or
-    None), grouped by coder.
+    None): each coder group decoded by its kernel, then one R over the
+    whole range, which writes every output row in block order.
 
     Only the range's compact words, [off_h[b0], off_h[b1]), cross to the
     device, with each block's start rebased to them; each coder group's
@@ -525,12 +561,17 @@ def decode_range(
     w0, w1 = int(off_h[b0]), int(off_h[b1])
     coders = hb.coder_arr()[b0:b1]
     groups = []
+    # each block's row in its group's z: >= 0 in the first group, -1 - row
+    # in the second
+    src_h = np.empty(b1 - b0, np.int32)
     for gid, gname in _CODERS:
         idx_h = np.nonzero(coders == gid)[0]
         if idx_h.size == 0:
             continue
         if gid == CODER_RICE and backend not in DECODE_BACKENDS:
             raise ValueError(f"unknown kernel backend {backend!r}")
+        rows = np.arange(idx_h.size, dtype=np.int32)
+        src_h[idx_h] = -1 - rows if groups else rows
         groups.append((gname, idx_h))
     with stage("upload"):
         words = torch.from_numpy(np.ascontiguousarray(
@@ -543,24 +584,25 @@ def decode_range(
                 ("predictor", hb.predictor[b0:b1]),
                 ("table_idx", hb.table_idx[b0:b1]),
                 ("history", hb.history[b0:b1]),
-                ("count", np.diff(off_h[b0 : b1 + 1])),
+                ("count", np.diff(off_h[b0 : b1 + 1])), ("src", src_h),
             )
         }
         heads["start"] = torch.from_numpy(off_h[b0:b1] - w0).to(device)
         groups = [(gname, torch.from_numpy(idx_h).to(device))
                   for gname, idx_h in groups]
-    xs = torch.zeros((b1 - b0, L), dtype=torch.int32, device=device)
-    bad = None
+    zs, bad = [], None
     for gname, idx in groups:
-        g = {name: t[idx] for name, t in heads.items()}
+        g = {name: heads[name][idx] for name in ("start", "count", "k", "n")}
         with stage(f"decode_{gname}"):
             z, flags = decode_z(words, g["start"], g["count"], g["k"], g["n"], L,
                                 gname)
         bad = flags if flags is not None else bad
-        with stage("reconstruct"):
-            xs[idx] = reconstruct(
-                z, g["n"], g["predictor"], g["table_idx"], g["history"], coeffs
-            )
+        zs.append(z)
+    if not zs:  # an empty range
+        return torch.empty((0, L), dtype=torch.int32, device=device), bad
+    with stage("reconstruct"):
+        xs = reconstruct(zs, heads["src"], heads["n"], heads["predictor"],
+                         heads["table_idx"], heads["history"], coeffs)
     return xs, bad
 
 
@@ -583,6 +625,7 @@ def decode_blocks_array(
     tables = [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]]
     coeffs = [torch.tensor(tables, dtype=torch.int32, device=d) for d in devices]
     stages = [_Stages(stage_ms, d) for d in devices]
+    chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     ranges = block_ranges(B, chunk_blocks)
     out = None if len(ranges) == 1 and len(devices) == 1 else np.empty((B, L), np.int32)
     for c0, c1 in ranges:

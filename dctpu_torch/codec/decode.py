@@ -5,7 +5,8 @@ stages so that each can be timed: ``decode_z`` (VERTICAL blocks through
 K4, ``kernels/vdec.py``, at every block length; RICE blocks through K5b,
 ``kernels/unpack.py``; both read each block's words in place), then
 ``reconstruct`` (unzigzag and the predictor inverse, through R,
-``kernels/reconstruct.py``). Every block decodes on its own (FORMAT §2.1).
+``kernels/reconstruct.py``, once for all of a range's coder groups). Every
+block decodes on its own (FORMAT §2.1).
 """
 
 from __future__ import annotations
@@ -33,7 +34,13 @@ def decode_z(words, start, count, k, n, block_len: int, coder: str):
     return launch_vdec_words(words, start, count, n, block_len)
 
 
-def reconstruct(z, n, predictor, table_idx, history, table_coeffs) -> torch.Tensor:
-    """Zigzag values -> samples [B, L] int32, zeros past n; table_coeffs
-    [T, 4] int32. One launch of R per call on a card."""
-    return recon.reconstruct(z, n, predictor, table_idx, history, table_coeffs)
+def reconstruct(zs, src, n, predictor, table_idx, history,
+                table_coeffs) -> torch.Tensor:
+    """A decode range's coder groups' zigzag values (zs: one or two [Bg, L]
+    tensors) -> the range's samples [B, L] int32 in block order, zeros past
+    n; block b's row is zs[0][src[b]] for src[b] >= 0 and zs[1][-1 - src[b]]
+    for src[b] < 0; table_coeffs [T, 4] int32. One launch of R per call on
+    a card."""
+    return recon.reconstruct(zs[0], n, predictor, table_idx, history,
+                             table_coeffs, src=src,
+                             z1=zs[1] if len(zs) > 1 else None)

@@ -1,9 +1,9 @@
 // Shared device code of the predictor stage (docs/FORMAT.md §3): the
 // forward residuals that the selection kernels (select.cu) and the VERTICAL
-// emit (vemit.cu) derive from the raw samples, and the Q16 prediction that
-// the reconstruction (recon.cu) runs backwards. One copy, so that every
-// kernel computes the residual of predict.residuals_for_candidate bit for
-// bit.
+// emit (vemit.cu) derive from the raw samples, and the unzigzag and the
+// predictors' Q16 tables that the reconstruction (recon.cu) runs backwards.
+// One copy, so that every kernel computes the residual of
+// predict.residuals_for_candidate bit for bit.
 //
 // All sample arithmetic wraps in int32 (uint32_t here). The LPC accumulator
 // is the wrapping int64 sum of the four exact int32 x int32 products, then

@@ -56,7 +56,7 @@ SIGNATURES = {
     "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),
     "dct_exc_extract": (_P, _P, _P, _P, _I, _P),
     "dct_bit_planes32": (_P, _P, _I, _P),
-    "dct_reconstruct": (_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
+    "dct_reconstruct": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
     "dct_vertical_cost_xbp": (_P, _P, _P, _P, _I, _I, _P),
     "dct_vertical_cost_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }

@@ -249,6 +249,11 @@ def test_wrappers_refuse_other_devices():
 def test_port_imports_no_jax():
     code = (
         "import sys\n"
+        "from dctpu_torch.codec import compress, decompress\n"
+        "import dctpu_torch.kernels.vemit, dctpu_torch.kernels.pack\n"
+        "import dctpu_torch.kernels.vertical_cost\n"
+        "from dctpu_torch import (BLOCK_LEN_DEFAULT, DELTA, DOUBLE_DELTA,\n"
+        "    ESCAPE_Q, K_MAX, LPC, MAX_CODE_BITS, RAW_BITS)\n"
         "import dctpu_torch.codec.api, dctpu_torch.kernels.vdec, chip_smoke\n"
         "import dctpu_torch.cli.main, dctpu_torch.codec.select\n"
         "import dctpu_torch.kernels.select_reduce, dctpu_torch.kernels.exc_extract\n"
@@ -265,3 +270,62 @@ def test_port_imports_no_jax():
     )
     assert res.returncode == 0, res.stderr
     assert res.stdout.strip() == "ok"
+
+
+def test_package_names_match_the_reference():
+    """The package-level names of dctpu and dctpu.codec that the port has:
+    the format constants, and compress and decompress, which load lazily."""
+    import dctpu
+    import dctpu.codec
+    import dctpu_torch
+    import dctpu_torch.codec
+
+    for name in ("BLOCK_LEN_DEFAULT", "DELTA", "DOUBLE_DELTA", "ESCAPE_Q",
+                 "K_MAX", "LPC", "MAX_CODE_BITS", "RAW_BITS"):
+        assert getattr(dctpu_torch, name) == getattr(dctpu, name), name
+    for name in ("compress", "decompress"):
+        assert callable(getattr(dctpu.codec, name))
+        assert getattr(dctpu_torch.codec, name) is getattr(api, name)
+        assert name in dir(dctpu_torch.codec)
+    with pytest.raises(AttributeError):
+        dctpu_torch.codec.scalar_compress  # noqa: B018 (not ported)
+
+
+def test_decode_range_matches_reference_decode(frames512):
+    """decode_range on the CPU, over ranges that hold both coder groups, the
+    whole batch and an empty range, equals the reference's decoded blocks."""
+    ref_bytes = frames512["mixed"][1]
+    want = ref_api._decode_blocks_array(ref_read_frame(ref_bytes))
+    frame = read_frame(ref_bytes)
+    B, L = frame.blocks.num_blocks, frame.block_len
+    off_h = frame.blocks.word_offsets(L)
+    coeffs = torch.tensor([list(t.coeffs) for t in frame.tables] or [[0] * 4],
+                          dtype=torch.int32)
+    coders = frame.blocks.coder_arr()
+    switch = int(np.nonzero(coders[1:] != coders[:-1])[0][-1])  # last change
+    for b0, b1 in ((0, B), (1, B - 2), (switch, switch + 2), (4, 4)):
+        assert b0 == b1 or set(coders[b0:b1].tolist()) == {0, 1}
+        xs, bad = api.decode_range(frame, off_h, coeffs, b0, b1)
+        assert bad is None and xs.dtype == torch.int32
+        assert np.array_equal(xs.numpy(), want[b0:b1])
+
+
+def test_range_blocks_bounds_the_default_pass():
+    """The default pass: one range on the CPU (no total memory); on a card,
+    ranges of as many blocks as fit 1 / DEVICE_SHARE of its total memory at
+    DEVICE_BYTES_PER_SAMPLE bytes a sample; an explicit chunk_blocks wins."""
+    per_block = api.DEVICE_SHARE * api.DEVICE_BYTES_PER_SAMPLE
+    assert api.range_blocks(None, None, 4096) is None
+    assert api.device_memory(["cpu"]) is None
+    assert api.device_memory([torch.device("cpu"), "cuda:0"]) is None
+    h100 = 85_017_493_504  # an H100 80GB HBM3's total_memory
+    got = api.range_blocks(None, h100, 4096)
+    assert got == h100 // (per_block * 4096)
+    assert got >= 8192  # 128 MiB at 4096 samples a block is one range
+    assert api.range_blocks(None, h100, 128) == h100 // (per_block * 128)
+    assert api.range_blocks(None, 1, 4096) == 1
+    assert api.range_blocks(None, 3 * per_block * 100, 100) == 3
+    for total in (None, 1, h100):
+        assert api.range_blocks(7, total, 4096) == 7
+    assert len(api.block_ranges(1000, api.range_blocks(
+        None, 3 * per_block * 128 + 5, 128))) == 334

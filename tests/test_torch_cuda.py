@@ -127,6 +127,35 @@ def test_emit_rows_and_reconstruct_match_twins_on_card(cuda, L):
     _same((got,), (want,))
 
 
+@pytest.mark.parametrize("L", [4096, 300, 129, 12000])
+def test_reconstruct_range_matches_twin_on_card(cuda, L):
+    """R's range form: each block's z row read through its source row from
+    one of two coder groups' tensors, in shuffled orders, on every
+    predictor and table, against its twin; a single group in reverse order;
+    and a group tensor that starts off 16-byte alignment."""
+    z, _, h, n, _ = (t.to(cuda) for t in _inputs(L, 27))
+    B = z.shape[0]
+    h[::5] = torch.tensor([-(2**31), 2**31 - 1, -(2**31), 2**31 - 1],
+                          dtype=torch.int32)
+    pred = (torch.arange(B, device=cuda) % 3).to(torch.int32)
+    table_idx = (torch.arange(B, device=cuda) // 3 % len(TABLES)).to(torch.int32)
+    coeffs = torch.tensor(TABLES, dtype=torch.int32, device=cuda)
+    first, second, src = chip_smoke.split_groups(z, seed=L)
+    args = (n, pred, table_idx, h, coeffs)
+    got = reconstruct.reconstruct(first, *args, src=src, z1=second)
+    want = reconstruct.reconstruct_range_plain(first, *args, src, second)
+    _same((got,), (want,))
+    _same((got,), (reconstruct.reconstruct_plain(z, *args),))
+    rev = torch.arange(B - 1, -1, -1, dtype=torch.int32, device=cuda)
+    _same((reconstruct.reconstruct(z.flip(0).contiguous(), *args, src=rev),),
+          (want,))
+    shifted = torch.empty(first.numel() + 1, dtype=torch.int32, device=cuda)
+    shifted[1:] = first.reshape(-1)
+    unaligned = shifted[1:].view(first.shape)  # 4 bytes past the allocation
+    _same((reconstruct.reconstruct(unaligned, *args, src=src, z1=second),),
+          (want,))
+
+
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
 def test_rice_kernels_match_twins_on_card(cuda, L):
     """K6 (its three forms), K5a (both forms: the x form with every
@@ -348,7 +377,7 @@ def test_backend_paths_on_card(cuda):
 
 @pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
 def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
-    """R once per coder group in every decode, K3's x form and K4 once per
+    """R once per decode range (here one), K3's x form and K4 once per
     VERTICAL group, K5a's x form and K5b once per RICE group; the plain
     stages they replace (the winner's residuals of either emission and the
     staging of the decode's rows among them) never run on the card."""
@@ -372,7 +401,7 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     vert = int((frame.blocks.coder_arr() == 1).any())
     out = api.decompress(read_frame(write_frame(frame)), device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
-    assert [fn.launches for fn in counted] == [groups, vert, 0, vert,
+    assert [fn.launches for fn in counted] == [1, vert, 0, vert,
                                                groups - vert, groups - vert, 0]
     assert groups == (2 if coder == "adaptive" else 1)
 
@@ -399,6 +428,28 @@ def test_sharded_two_shards_on_card(cuda):
     assert len(ranges) == 4
     assert launches == chip_smoke.range_launches(
         "adaptive", coders, ranges, len(cfg.candidates()) - 2)
+
+
+def test_default_pass_splits_by_device_memory_on_card(cuda, monkeypatch):
+    """With the card's memory taken as small, the default pass (chunk_blocks
+    None) cuts a 1000-block input into at least 3 ranges: one R per
+    decode range, and the frame and the decode equal the one-pass ones."""
+    cfg = CodecConfig(block_len=128, coder="adaptive")
+    streams, ids, cads = synth_corpus(5, 1000 * 128 // 5, seed=4,
+                                      mixed_cadence=True, cumulative_frac=0.5)
+    one = write_frame(api.compress(streams, cfg, ids, cads, device=cuda,
+                                   chunk_blocks=10**6))
+    assert read_frame(one).blocks.num_blocks == 1000
+    per_block = api.DEVICE_SHARE * api.DEVICE_BYTES_PER_SAMPLE * 128
+    monkeypatch.setattr(api, "device_memory", lambda devices: 300 * per_block)
+    assert api.range_blocks(None, api.device_memory([cuda]), 128) == 300
+    chip_smoke.reset_counters()
+    frame = write_frame(api.compress(streams, cfg, ids, cads, device=cuda))
+    out = api.decompress(read_frame(frame), device=cuda)
+    launches = chip_smoke.read_counters()
+    assert frame == one
+    assert all(np.array_equal(a, b) for a, b in zip(streams, out))
+    assert launches["R"] == 4 and launches["K1"] == 4
 
 
 def test_sharded_decode_raises_for_a_bad_vertical_block_on_card(cuda):

@@ -11,6 +11,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import split_groups
 from dctpu.codec import predict as ref_predict
 from dctpu.codec import rice as ref_rice
 from dctpu_torch.codec import api, predict
@@ -90,22 +91,87 @@ def test_delta_predictors_as_q16_tables(L):
         assert torch.equal(predict.reconstruct_lpc(r, h, coeffs), inverse(r, h))
 
 
-def test_cpu_decode_goes_through_reconstruct(monkeypatch):
-    """decompress calls kernels.reconstruct once per coder group."""
+@pytest.mark.parametrize("L", [300, 200])
+def test_range_twin_matches_reference(L):
+    """R's range form: each block's z row read from one of two coder groups'
+    tensors through its source row, in shuffled orders, equals the
+    reference on every predictor and table, histories and residuals at the
+    int32 extremes and n = 0, n < L and n = L; and B = 0 gives [0, L]."""
+    z, n, pred, table_idx, hist = _inputs(L, seed=5)
+    want = _reference(z, n, pred, table_idx, hist)
+    first, second, src = split_groups(torch.from_numpy(z.view(np.int32)), L)
+    coeffs = torch.from_numpy(TABLES.astype(np.int32))
+    heads = [torch.from_numpy(a) for a in (n, pred, table_idx, hist)]
+    args = (first, *heads, coeffs)
+    got = reconstruct.reconstruct_range_plain(*args, src, second)
+    assert np.array_equal(got.numpy(), want)
+    # the wrapper runs the range twin for CPU tensors
+    assert torch.equal(reconstruct.reconstruct(*args, src=src, z1=second), got)
+    # one group alone, its rows in reverse block order
+    B = z.shape[0]
+    got1 = reconstruct.reconstruct(
+        torch.from_numpy(np.ascontiguousarray(z.view(np.int32)[::-1])), *heads,
+        coeffs, src=torch.arange(B - 1, -1, -1, dtype=torch.int32))
+    assert np.array_equal(got1.numpy(), want)
+    empty = [t[:0] for t in heads]
+    out = reconstruct.reconstruct(first, *empty, coeffs, src=src[:0], z1=second)
+    assert out.shape == (0, L) and out.dtype == torch.int32
+
+
+EDGES32 = np.array([I32_MIN, I32_MIN + 1, -(2**16), -1, 0, 1, 2**16,
+                    I32_MAX - 1, I32_MAX], np.int64)
+
+
+def test_short_chain_identity():
+    """The step of recon.cu: q = c1 x2 + c2 x3 + c3 x4 formed a step ahead
+    (wrapping mod 2**64), then acc = c0 x1 + q, and the prediction as bits
+    16..47 of acc, ((hi << 16) | (lo >>> 16)) of its words, equals the low
+    word of the reference's (c0 x1 + c1 x2 + c2 x3 + c3 x4) >> 16, on
+    coefficients and samples at the int32 extremes and at random."""
+    rng = np.random.default_rng(17)
+    grid = np.stack(np.meshgrid(EDGES32, EDGES32, indexing="ij"), -1).reshape(-1, 2)
+    rand = rng.integers(I32_MIN, I32_MAX, size=(4096, 8), endpoint=True)
+    edge = rng.choice(EDGES32, size=(4096, 8))
+    vals = np.concatenate([
+        np.concatenate([grid, grid[::-1], grid, grid[::-1]], 1),
+        rand, edge, np.where(rng.random((4096, 8)) < 0.5, rand, edge),
+    ])
+    c = torch.from_numpy(vals[:, :4])
+    x = torch.from_numpy(vals[:, 4:])  # x_{t-1} .. x_{t-4}
+    q = c[:, 1] * x[:, 1] + c[:, 2] * x[:, 2] + c[:, 3] * x[:, 3]  # wraps
+    acc = c[:, 0] * x[:, 0] + q
+    lo, hi = acc & 0xFFFFFFFF, (acc >> 32) & 0xFFFFFFFF
+    funnel = ((hi << 16) | (lo >> 16)) & 0xFFFFFFFF
+    # the reference's order (dctpu/codec/predict.py lpc_predict_encode)
+    ref = (c[:, 0] * x[:, 0] + c[:, 1] * x[:, 1] + c[:, 2] * x[:, 2]
+           + c[:, 3] * x[:, 3]) >> 16
+    assert torch.equal(funnel, ref & 0xFFFFFFFF)
+    assert torch.equal(funnel, (acc >> 16) & 0xFFFFFFFF)
+    # some sums wrap int64, and both signs of acc occur
+    assert bool((acc < 0).any()) and bool((acc > 0).any())
+
+
+@pytest.mark.parametrize("chunk_blocks", [None, 3])
+def test_cpu_decode_goes_through_reconstruct(monkeypatch, chunk_blocks):
+    """decompress calls kernels.reconstruct once per decode range, over all
+    of the range's blocks and both of its coder groups."""
     streams, ids, cads = synth_corpus(4, 3000, seed=9, cumulative_frac=0.5)
     frame = api.compress(streams, CodecConfig(block_len=512, coder="adaptive"),
                          ids, cads, device="cpu")
     groups = len(set(frame.blocks.coder_arr().tolist()))
     assert groups == 2
+    B = frame.blocks.num_blocks
+    ranges = api.block_ranges(B, chunk_blocks)
     calls = []
     inner = reconstruct.reconstruct
 
-    def counted(*args):
-        calls.append(args[0].shape)
-        return inner(*args)
+    def counted(*args, **kwargs):
+        calls.append(args[1].shape[0])  # the range's blocks
+        return inner(*args, **kwargs)
 
     monkeypatch.setattr(reconstruct, "reconstruct", counted)
-    out = api.decompress(read_frame(write_frame(frame)), device="cpu")
+    out = api.decompress(read_frame(write_frame(frame)), device="cpu",
+                         chunk_blocks=chunk_blocks)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
-    assert len(calls) == groups
-    assert sum(shape[0] for shape in calls) == frame.blocks.num_blocks
+    assert calls == [b - a for a, b in ranges]
+    assert len(calls) == (1 if chunk_blocks is None else -(-B // 3))
