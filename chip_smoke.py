@@ -27,7 +27,10 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      block's row read from one of two shuffled coder groups) on every
      predictor and table, with histories at the int32 extremes, timed also
      with every block on one predictor at 8192 and 512 blocks beside
-     torch.cumsum as DELTA's yardstick, and the decode kernels
+     torch.cumsum as DELTA's yardstick, CP (the encode's compaction) on
+     the blocks' RICE and VERTICAL rows dealt to two shuffled coder groups,
+     beside one torch copy_ of as many words as its yardstick, with a bad
+     VERTICAL sync entry that must raise, and the decode kernels
      K4 and K5b on the compact words of their blocks, laid out in a
      shuffled order between words of no block, a few RICE blocks cut
      short, and a bad VERTICAL sync entry that must raise;
@@ -40,13 +43,16 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      VC-xbp once and VC-lpc once per LPC candidate on the vertical paths,
      never on the others;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
-     paths; R once per decode range (here one) in every decode, K5b once
+     paths; R once per decode range (here one) in every decode, CP once
+     per encode range (here one) in every encode, K5b once
      per RICE group and K4 once per VERTICAL group; K3 once per VERTICAL
      group and its z form never; K5a's x form once per RICE group and its
-     z form never), and the plain torch stages that R, K3, K4, K5a, K5b and VC
-     replace never run (the LPC recurrence loop, the region assembly, the
-     winner's residuals in an emission, the staging of the decode's
-     rows, the VERTICAL selection cost), with the device segments each compress obtained from
+     z form never), and the plain torch stages that R, K3, K4, K5a, K5b, VC
+     and CP replace never run (the LPC recurrence loop, the region
+     assembly, the winner's residuals in an emission, the staging of the
+     decode's rows, the VERTICAL selection cost, the segment copies of the
+     compaction), with the encode's compact and download stages, the
+     device segments each compress obtained from
      the allocator and the peak device bytes per input byte of each
      compress and decompress (and, for the adaptive path, the stage times
      of a second compress on the cached segments); that the default pass
@@ -65,7 +71,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      groups of those frames, read in place as the decode reads them, and
      K5a's x form on their RICE groups from the corpus's blocks (the main
      path's kernel times, the adaptive RICE group's 1351 blocks beside
-     the rice path's 8192);
+     the rice path's 8192), and CP on the adaptive range's coder groups,
+     its arguments kept from one more adaptive compress (words equal to
+     the frame's);
   4. drives the distribution layer on the same corpus: compress_sharded ->
      decompress_sharded of each coder over make_mesh() (the one card, in
      chunks of 2048 blocks) and of the adaptive coder over [cuda:0,
@@ -242,6 +250,22 @@ def split_groups(z, seed):
     return parts[0], parts[1], torch.from_numpy(src).to(z.device)
 
 
+def compact_groups(rice, rice_bits, vert, vert_bits, seed):
+    """CP's inputs for blocks with both coders' rows (row b of rice and of
+    vert, bit lengths rice_bits and vert_bits): the blocks dealt by
+    split_groups, RICE rows in the first group and VERTICAL rows in the
+    second, each in a shuffled order -> (rows_a, rows_b, src, coder,
+    bit_len)."""
+    import torch
+
+    B = rice.shape[0]
+    ids = torch.arange(B, dtype=torch.int32, device=rice.device)[:, None]
+    ids_a, ids_b, src = split_groups(ids, seed)
+    coder = (src < 0).to(torch.int32)
+    bit_len = torch.where(coder == 1, vert_bits, rice_bits)
+    return rice[ids_a[:, 0].long()], vert[ids_b[:, 0].long()], src, coder, bit_len
+
+
 def bound(nbytes: float, ops: float):
     """(least ms on the card, what bounds it) for this many bytes moved
     (each input read once, each output written once) and integer ops."""
@@ -291,7 +315,9 @@ def work(key, B, L, n, b, rows_words, preds):
     32 words). K3's output is its payload rows, rows_words["K3"] words,
     whole, and K5a's rows_words["K5a"]; K4 and K5b read the count_i words
     of each block, rows_words["K4"] and ["K5b"] in all, with its start
-    (8 bytes) and count."""
+    (8 bytes) and count. CP reads and writes rows_words["CP"] live words,
+    with each block's src, coder, word count and offset, and does no
+    arithmetic to speak of."""
     v = int(n.clamp(0, L).sum())
     K1 = K_MAX + 1
     R = B * -(-L // 128)
@@ -328,6 +354,7 @@ def work(key, B, L, n, b, rows_words, preds):
         "VC-lpc": (4 * B * L + 16 * B + 4 * B + 4 * B, v * (VC_OPS + LPC_OPS)),
         "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
         "K9": (sub_bytes * 128 * 2, 15 * 128 * R),
+        "CP": (8 * rows_words["CP"] + 24 * B + 4, 0),
     }[key]
 
 
@@ -370,6 +397,8 @@ RECS = {
                "dctpu/kernels/vertical_xla.py:263"),
     "VC-lpc": ("VC vertical_cost_lpc (LPC form)", "dctpu_torch/csrc/select.cu",
                "dctpu/kernels/vertical_xla.py:263"),
+    "CP": ("CP compact_range", "dctpu_torch/csrc/compact.cu",
+           "dctpu/kernels/ragged.py:192"),
 }
 
 
@@ -407,6 +436,12 @@ def check_kernels(dev):
     import torch
 
     from dctpu_torch._bits import to_i32
+    from dctpu_torch.kernels.compact import (
+        compact_range,
+        compact_range_plain,
+        launch_compact,
+        word_counts,
+    )
     from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
     from dctpu_torch.kernels.pack import (
         rice_pack,
@@ -489,6 +524,7 @@ def check_kernels(dev):
         emitted = vertical_emit(z, n, L)
         planes, b, vwords, n_exc, e, pos_words, vals = emitted
         rows = assemble_rows(planes, b, n_exc, e, pos_words, vals, L)
+        vbits = 32 * vwords.long().sum(1)
         cfg = CodecConfig(block_len=L, coder="vertical",
                           lpc_tables=tuple(LpcTable(4, c) for c in tables))
         cands = cfg.candidates()
@@ -517,7 +553,10 @@ def check_kernels(dev):
         r_count[2] //= 2
         r_count[5] = 0
         v_words, v_start, v_count = scatter_blocks(
-            *ragged.compact_vertical(rows, L), seed=300 + si)
+            *ragged.compact_vertical(rows, vbits, L), seed=300 + si)
+        # CP compacts the blocks' RICE and VERTICAL rows dealt to two
+        # shuffled coder groups
+        cp_args = (*compact_groups(payload, bit_len, rows, vbits, 500 + si), L)
         # K8 and K9 take the staged emission's inputs: the sub-block rows
         # (zero past n), with the width rule's b for K8 (b = 0 and 32 on two
         # blocks, so that ranks past EXC_CAP are dropped)
@@ -579,6 +618,8 @@ def check_kernels(dev):
                   lambda: (reconstruct_range_plain(z_first, n, pred_r, tidx,
                                                    hist_r, coeffs, src,
                                                    z_second),)),
+            "CP": (lambda: compact_range(*cp_args),
+                   lambda: compact_range_plain(*cp_args)),
         }
         for key, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -590,6 +631,8 @@ def check_kernels(dev):
                 fail(f"{key} differs from its twin at {B}x{L}")
             if key == "K4":
                 bad_vertical_check(v_words, v_start, v_count, n, L)
+            if key == "CP":
+                bad_compact_check(cp_args)
             if (B, L) == (BENCH_BLOCKS, BENCH_LEN):
                 r = recs[key]
                 c0 = tables[0]
@@ -605,6 +648,19 @@ def check_kernels(dev):
                 if key == "K4":  # the kernel; the wrapper adds a host read
                     r["wrapper_ms"] = time_ms(kern, 10)
                     kern = lambda: launch_vdec_words(v_words, v_start, v_count, n, L)  # noqa: E731
+                if key == "CP":  # the launch; the wrapper adds two host reads
+                    r["wrapper_ms"] = time_ms(kern, 10)
+                    cp_wc = word_counts(cp_args[3], cp_args[4], L)
+                    cp_off = torch.cumsum(cp_wc, 0) - cp_wc
+                    cp_total = int(cp_wc.sum())
+                    cp_buf = torch.empty(cp_total + 1, dtype=torch.int32,
+                                         device=dev)
+                    kern = lambda: launch_compact(*cp_args[:4], cp_wc, cp_off,  # noqa: E731
+                                                  cp_buf, L)
+                    # yardstick: one copy_ of as many contiguous words
+                    flat = torch.empty(2 * cp_total, dtype=torch.int32, device=dev)
+                    r["copy_ms"] = time_ms(
+                        lambda: flat[:cp_total].copy_(flat[cp_total:]), 10)
                 r["ms"] = time_ms(kern, 10)
                 r["plain_ms"] = time_ms(plain, 3)
                 words = {  # the live words, not the rows' padding
@@ -615,6 +671,7 @@ def check_kernels(dev):
                     "K3": int(rows.numel()),
                     "cands": len(cands),
                     "tables": len(tables),
+                    "CP": cp_total if key == "CP" else 0,
                 }
                 nbytes, ops = work(key, B, L, n, b, words, preds)
                 r["bound_ms"], r["bound_by"] = bound(nbytes, ops)
@@ -626,7 +683,7 @@ def check_kernels(dev):
         del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload
         del r_words, r_start, r_count, v_words, v_start, v_count
         del zs, b_exc, groups, emitted, choice, pred_r, tidx, hist_r, zr, preds
-        del z_first, z_second, src
+        del z_first, z_second, src, vbits, cp_args
         torch.cuda.empty_cache()
     return recs
 
@@ -701,6 +758,57 @@ def group_times(dev, frames, recs, streams) -> None:
                   flush=True)
 
 
+def cp_range_time(dev, streams, ids, cads, frames, recs) -> None:
+    """CP on the 128 MiB adaptive range: the adaptive compress run again
+    with CP's arguments kept (its two coder groups' rows as the emission
+    leaves them), then CP's launch timed on them, its words equal to the
+    frame's, beside its bytes bound and one torch copy_ of as many
+    contiguous words."""
+    import numpy as np
+    import torch
+
+    from dctpu_torch.codec import api
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.format import write_frame
+    from dctpu_torch.kernels.compact import launch_compact, word_counts
+
+    kept, real = [], api.compact_range_flagged
+
+    def keep(*args):
+        kept.append(args)
+        return real(*args)
+
+    api.compact_range_flagged = keep
+    try:
+        frame = api.compress(streams, CodecConfig(coder="adaptive"), ids, cads,
+                             device=dev)
+    finally:
+        api.compact_range_flagged = real
+    if len(kept) != 1 or write_frame(frame) != frames["adaptive"]:
+        fail("the adaptive compress with CP's arguments kept differs")
+    rows_a, rows_b, src, coder, bit_len, L = kept[0]
+    wc = word_counts(coder, bit_len, L)
+    off = torch.cumsum(wc, 0) - wc
+    total = int(wc.sum())
+    buf = torch.empty(total + 1, dtype=torch.int32, device=dev)
+    fn = lambda: launch_compact(rows_a, rows_b, src, coder, wc, off, buf, L)  # noqa: E731
+    fn()
+    if not np.array_equal(buf[:-1].cpu().numpy().view(np.uint32),
+                          frame.payload_words) or int(buf[-1]):
+        fail("CP's words on the adaptive range differ from the frame's")
+    ms = time_ms(fn, 10)
+    flat = torch.empty(2 * total, dtype=torch.int32, device=dev)
+    copy_ms = time_ms(lambda: flat[:total].copy_(flat[total:]), 10)
+    b_ms, _ = bound(8 * total + 24 * src.numel() + 4, 0)
+    r = recs["CP"]
+    r["ms_adaptive_range"], r["copy_ms_adaptive_range"] = ms, copy_ms
+    r["bound_ms_adaptive_range"] = b_ms
+    print(f"  CP on the adaptive range ({src.numel()} blocks, RICE "
+          f"{rows_a.shape[0]} / VERTICAL {rows_b.shape[0]}, {total} words, "
+          f"equal to the frame's): {ms:.4f} ms, bytes bound {b_ms:.4f} ms; "
+          f"one copy_ of {total} words {copy_ms:.4f} ms", flush=True)
+
+
 def bad_vertical_check(words, start, count, n, L) -> None:
     """K4 on the card raises the twin's ValueError for a block whose sync
     entry has a width above 32."""
@@ -717,10 +825,27 @@ def bad_vertical_check(words, start, count, n, L) -> None:
         fail(f"K4 decoded a block with a bad sync entry at {L}")
 
 
+def bad_compact_check(args) -> None:
+    """CP on the card raises the twin's ValueError for a VERTICAL block
+    whose sync entry has a width above 32."""
+    from dctpu_torch.kernels.compact import compact_range
+
+    rows_b = args[1].clone()
+    rows_b[0, 0] = (rows_b[0, 0] & -(1 << 16)) | 40  # sub 0: b = 40
+    try:
+        compact_range(args[0], rows_b, *args[2:])
+    except ValueError as e:
+        if "sync table does not match" not in str(e):
+            fail(f"CP raised another ValueError on a bad sync entry: {e}")
+    else:
+        fail(f"CP compacted a block with a bad sync entry at {args[-1]}")
+
+
 def counters():
     """Each record's wrappers: "K2" counts both of K2's forms, "K6" all
     three of K6's."""
     from dctpu_torch.kernels import (
+        compact,
         exc_extract,
         pack,
         reconstruct,
@@ -754,6 +879,7 @@ def counters():
         "R": (reconstruct.reconstruct,),
         "VC-xbp": (vertical_cost.vertical_cost_xbp,),
         "VC-lpc": (vertical_cost.vertical_cost_lpc,),
+        "CP": (compact.compact_range,),
     }
 
 
@@ -770,12 +896,13 @@ def read_counters() -> dict:
 # kernels each path must launch, and those it must not: the paths are
 # (coder, backend)
 NEEDS = {
-    ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b", "R"),
-    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc", "R"),
-    ("vertical", None): ("K3", "K4", "R", "VC-xbp", "VC-lpc"),
+    ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b", "R",
+                         "CP"),
+    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc", "R", "CP"),
+    ("vertical", None): ("K3", "K4", "R", "VC-xbp", "VC-lpc", "CP"),
     ("adaptive", "pallas"): ("K1", "K2", "K2-lpc", "K4", "K5a", "K5b", "K8",
-                             "K9", "R"),
-    ("vertical", "pallas"): ("K4", "K8", "K9", "R", "VC-xbp", "VC-lpc"),
+                             "K9", "R", "CP"),
+    ("vertical", "pallas"): ("K4", "K8", "K9", "R", "VC-xbp", "VC-lpc", "CP"),
 }
 NEVER = {
     ("adaptive", None): ("K3-z", "K5a-z", "K9", "VC-xbp", "VC-lpc"),
@@ -788,13 +915,14 @@ NEVER = {
 
 @contextlib.contextmanager
 def plain_calls():
-    """Counts the calls of the plain torch stages that R, K3, K4, K5a, K5b
-    and VC replace on the default paths: the LPC recurrence loop, the
+    """Counts the calls of the plain torch stages that R, K3, K4, K5a, K5b,
+    VC and CP replace on the default paths: the LPC recurrence loop, the
     region assembly, the winner's residuals of an emission (a VERTICAL
     group's on the staged backends only), the staging of the decode's
-    VERTICAL and RICE rows, and the VERTICAL selection cost (VC's twin
-    too); and the flips in the staged VERTICAL emission, which K9 no
-    longer needs."""
+    VERTICAL and RICE rows, the VERTICAL selection cost (VC's twin too),
+    and the compaction's segment copies (ragged.segment_index and
+    copy_segments, and torch.repeat_interleave); and the flips in the
+    staged VERTICAL emission, which K9 no longer needs."""
     import torch
 
     from dctpu_torch.codec import encode, predict
@@ -802,12 +930,15 @@ def plain_calls():
 
     counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0,
               "stage_vertical": 0, "pad_payload": 0,
-              "vertical_selection_cost": 0, "staged_flip": 0}
+              "vertical_selection_cost": 0, "segment_index": 0,
+              "copy_segments": 0, "repeat_interleave": 0, "staged_flip": 0}
     patched = [(predict, "reconstruct_lpc"), (encode, "assemble_rows"),
                (vemit, "assemble_rows"), (predict, "chosen_residuals"),
                (ragged, "stage_vertical"), (ragged, "pad_payload"),
                (vertical, "vertical_selection_cost"),
-               (vertical_cost, "vertical_selection_cost")]
+               (vertical_cost, "vertical_selection_cost"),
+               (ragged, "segment_index"), (ragged, "copy_segments"),
+               (torch, "repeat_interleave")]
     saved = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -946,12 +1077,13 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     want_plain = {"reconstruct_lpc": 0, "assemble_rows": staged_vert,
                   "chosen_residuals": staged_vert, "stage_vertical": 0,
                   "pad_payload": 0, "vertical_selection_cost": 0,
-                  "staged_flip": 0}
-    if (launches["R"], launches["K3"], plain) != (
-            1, 0 if staged else int(hist[1] > 0), want_plain):
-        fail(f"R launched {launches['R']} times (want 1, one per decode "
-             f"range), K3 {launches['K3']}, plain stages {plain} (want "
-             f"{want_plain})")
+                  "segment_index": 0, "copy_segments": 0,
+                  "repeat_interleave": 0, "staged_flip": 0}
+    if (launches["R"], launches["CP"], launches["K3"], plain) != (
+            1, 1, 0 if staged else int(hist[1] > 0), want_plain):
+        fail(f"R launched {launches['R']} times and CP {launches['CP']} "
+             f"(want 1 each, one per decode and encode range), K3 "
+             f"{launches['K3']}, plain stages {plain} (want {want_plain})")
     if (launches["K5b"], launches["K4"]) != (int(hist[0] > 0), int(hist[1] > 0)):
         fail(f"K5b launched {launches['K5b']} times (want one per RICE group), "
              f"K4 {launches['K4']} (want one per VERTICAL group)")
@@ -1146,8 +1278,8 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     """The launches of a sharded round trip whose encode and decode each
     cover these block ranges, one pass per range: every kernel of the
     coder's default path once per range and coder group (K2, K6 and
-    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R once per
-    range, and none of the z forms, K7, K8 or K9."""
+    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R and CP
+    once per range, and none of the z forms, K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
@@ -1159,7 +1291,7 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
         "K5a": rice, "K5a-z": 0, "K5b": rice, "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
         "K8": 0, "K9": 0, "R": r, "VC-xbp": r * vert_sel,
-        "VC-lpc": r * n_lpc * vert_sel,
+        "VC-lpc": r * n_lpc * vert_sel, "CP": r,
     }
 
 
@@ -1342,11 +1474,11 @@ def multihost_check(frames, corpus) -> dict:
                   f"{seconds:.2f} s with process start-up; stats "
                   f"{json.dumps({k: lines[0][k] for k in ('global_blocks', 'local_blocks', 'compressed_words')})}; "
                   f"launches {json.dumps(launches)}", flush=True)
-            got = [launches[k] for k in ("K6-xbp", "K5a", "K5b", "R")]
-            if got != [2, 2, 0, 0]:
-                fail(f"{name}: K6-xbp, K5a, K5b, R launched {got} times "
-                     "(want K6-xbp and K5a once in each process, the decode "
-                     "kernels never)")
+            got = [launches[k] for k in ("K6-xbp", "K5a", "CP", "K5b", "R")]
+            if got != [2, 2, 2, 0, 0]:
+                fail(f"{name}: K6-xbp, K5a, CP, K5b, R launched {got} times "
+                     "(want K6-xbp, K5a and CP once in each process, the "
+                     "decode kernels never)")
     return by_path
 
 
@@ -1669,6 +1801,7 @@ def main() -> int:
         r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}
     print("K5b, K4 and K5a's x form on the frames' coder groups:", flush=True)
     group_times(dev, frames, recs, streams)
+    cp_range_time(dev, streams, ids, cads, frames, recs)
     oracle_check(streams, ids, cads, frames)
     cli_check()
 

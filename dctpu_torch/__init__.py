@@ -9,8 +9,9 @@ Layers, mirroring ``dctpu``:
   corpus/  — synthetic load-profile generator (copy)
   codec/   — predictors, Rice math, block encode/decode, host API, and
              corpus-fit LPC tables (``select``, copy)
-  kernels/ — CUDA kernels K1-K9 (csrc/) with plain torch twins, and the
-             plain torch VERTICAL region math and ragged copies
+  kernels/ — CUDA kernels K1-K9, R, VC and CP (csrc/) with plain torch
+             twins, and the plain torch VERTICAL region math and ragged
+             copies
   csrc/    — the CUDA C++ sources, built for sm_90a at first use
   dist/    — data parallelism over blocks on a list of devices, several
              processes over torch.distributed (gloo), the multi-device dry run

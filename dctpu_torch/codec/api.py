@@ -38,7 +38,7 @@ from dctpu_torch.codec.encode import adaptive_select, emit_blocks, select_blocks
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import CODER_RICE, CODER_VERTICAL, HISTORY_LEN, LPC
 from dctpu_torch.format.frame import BlockHeaders, Frame, StreamDir, plan_blocks
-from dctpu_torch.kernels import ragged
+from dctpu_torch.kernels.compact import compact_range_flagged, host_words
 from dctpu_torch.kernels.pack import padded_words
 from dctpu_torch.kernels.vdec import raise_if_bad
 
@@ -281,20 +281,6 @@ class _Stages:
 # ------------------------------------------------------------------ encode
 
 
-def compact_enc_payload(
-    payload: torch.Tensor, bit_len: torch.Tensor, block_len: int, coder: str
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """One coder group's payload rows -> (compact disk words, words per
-    block), on the rows' device (the semantics of the reference's
-    compact_enc_payload_device)."""
-    if coder == "vertical":
-        return ragged.compact_vertical(payload, block_len)
-    return (
-        ragged.compact_payload(payload, bit_len, block_len),
-        ragged.payload_word_counts(bit_len, block_len),
-    )
-
-
 def select_range(x_h, n_h, hist_h, cfg: CodecConfig, device, backend=None,
                  stage=None):
     """First half of a range's encode: upload its blocks (host [b, L],
@@ -316,9 +302,11 @@ def select_range(x_h, n_h, hist_h, cfg: CodecConfig, device, backend=None,
 
 def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
     """Second half of a range's encode, from :func:`select_range`'s
-    tensors: group the blocks by coder (one host read), emit and compact
-    each group, interleave the compact words in block order. Returns host
-    arrays (choice, coder, k, bit_len, words uint32)."""
+    tensors: group the blocks by coder (one host read), emit each group,
+    then one CP (``kernels/compact.py``) writes every block's compact words
+    in block order (one host read, of their total), and the words and the
+    per-block arrays cross to the host. Returns host arrays (choice, coder,
+    k, bit_len, words uint32)."""
     x, n, hist, choice, coder, kk = sel
     device = x.device
     stage = stage or _Stages(None, device)
@@ -327,32 +315,34 @@ def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
     coder_h = coder.cpu().numpy()
 
     bit_len = torch.zeros(B, dtype=torch.int64, device=device)
-    wc = torch.zeros(B, dtype=torch.int64, device=device)
-    groups = []
+    # each block's row in its group's payload: >= 0 in the first group,
+    # -1 - row in the second
+    src_h = np.empty(B, np.int32)
+    rows = []
     for gid, gname in _CODERS:
         idx_h = np.nonzero(coder_h == gid)[0]
         if idx_h.size == 0:
             continue
+        within = np.arange(idx_h.size, dtype=np.int32)
+        src_h[idx_h] = -1 - within if rows else within
         idx = torch.from_numpy(idx_h).to(device)
         with stage(f"emit_{gname}"):
             payload, bl = emit_blocks(
                 x[idx], n[idx], hist[idx], choice[idx], kk[idx], cfg, gname,
                 backend,
             )
-        with stage(f"compact_{gname}"):
-            words, wcg = compact_enc_payload(payload, bl, L, gname)
         bit_len[idx] = bl
-        wc[idx] = wcg
-        groups.append((idx, words, wcg))
+        rows.append(payload)
+    rows += [None] * (2 - len(rows))
 
-    with stage("interleave"):
-        off = torch.cumsum(wc, 0) - wc
-        out = torch.zeros(int(wc.sum()), dtype=torch.int32, device=device)
-        for idx, words, wcg in groups:
-            ragged.copy_segments(out, off[idx], words, torch.cumsum(wcg, 0) - wcg, wcg)
-        words_h = out.cpu().numpy().view(np.uint32)
-    return (choice.cpu().numpy(), coder_h, kk.cpu().numpy(),
-            bit_len.cpu().numpy(), words_h)
+    with stage("compact"):
+        buf, _ = compact_range_flagged(
+            rows[0], rows[1], torch.from_numpy(src_h).to(device), coder,
+            bit_len, L)
+    with stage("download"):
+        words_h = host_words(buf)
+        out = [t.cpu().numpy() for t in (choice, kk, bit_len)]
+    return out[0], coder_h, out[1], out[2], words_h
 
 
 def encode_range(x_h, n_h, hist_h, cfg: CodecConfig, device, backend=None,
@@ -448,8 +438,8 @@ def compress(
     Selection runs on the device: the (candidate, coder, k) per block for
     coder="adaptive" (FORMAT §4.1), the (candidate, k) per block for
     "rice" and "vertical". The blocks are grouped by coder, each group is
-    emitted and compacted, and the compact words are interleaved back into
-    block-table order on the device.
+    emitted, and one compaction (CP) writes the compact words of both
+    groups in block-table order on the device.
 
     ``backend`` goes to selection and emission as in the reference's
     compress: every name gives the same frame and picks the kernels of

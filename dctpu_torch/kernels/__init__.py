@@ -12,6 +12,7 @@ and the plain-torch stages around them.
   transpose    K9      bit planes of 32-word groups, disk order (backend="pallas")
   reconstruct  R       unzigzag + predictor inverse (decode)
   vertical_cost VC     VERTICAL selection cost (coder="vertical" selection)
+  compact      CP      the encode's compaction: payload rows -> compact words
   vertical, ragged: plain torch (XLA code on the TPU)
   args: the kernel arguments several wrappers share
 """

@@ -29,7 +29,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "dctpu_torch"
 SOURCES = (
     "select.cu", "vemit.cu", "vdec.cu", "pack.cu", "unpack.cu", "exc.cu",
-    "transpose.cu", "recon.cu",
+    "transpose.cu", "recon.cu", "compact.cu",
 )
 HEADERS = ("bitplane.cuh", "residual.cuh")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -59,6 +59,8 @@ SIGNATURES = {
     "dct_reconstruct": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
     "dct_vertical_cost_xbp": (_P, _P, _P, _P, _I, _I, _P),
     "dct_vertical_cost_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dct_compact_range": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
+                          _I, _P),
 }
 
 

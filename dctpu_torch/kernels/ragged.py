@@ -6,6 +6,10 @@ mirrors (``dctpu/codec/api.py`` compact_payload / pad_payload,
 transform here is one segment copy on the tensors' device: only the compact
 words ever need to cross to the host. The TPU's gather tunings (tile
 lattice, shape buckets) are not carried over; they never reach disk.
+
+These are plain twins: the compaction's of CP (``kernels/compact.py``), the
+staging's of the decode kernels K4 and K5b, which read the words in place.
+No card path runs them.
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from dctpu_torch.kernels.vertical import (
 )
 
 BAD_VERTICAL_TABLE = "VERTICAL sync table does not match the block's words"
+BAD_PAYLOAD_ROW = "a block's source row or word count does not fit its payload rows"
 
 
 def segment_index(start: torch.Tensor, length: torch.Tensor) -> torch.Tensor:
@@ -51,10 +56,13 @@ def payload_word_counts(bit_len: torch.Tensor, block_len: int) -> torch.Tensor:
 def compact_payload(
     payload: torch.Tensor, bit_len: torch.Tensor, block_len: int
 ) -> torch.Tensor:
-    """[B, W] RICE rows -> concatenated exact-size words (frame layout)."""
+    """[B, W] RICE rows -> concatenated exact-size words (frame layout).
+    Raises ValueError when a block's words do not fit its row."""
     B, W = payload.shape
     starts = torch.arange(B, device=payload.device) * W
     wc = payload_word_counts(bit_len, block_len)
+    if bool(((wc < sync_words(block_len)) | (wc > W)).any()):
+        raise ValueError(BAD_PAYLOAD_ROW)
     return payload.reshape(-1)[segment_index(starts, wc)]
 
 
@@ -71,22 +79,32 @@ def pad_payload(
 
 
 def compact_vertical(
-    payload: torch.Tensor, block_len: int
+    payload: torch.Tensor, bit_len: torch.Tensor, block_len: int
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Staged VERTICAL rows [B, W] -> (disk words, words per block [B])."""
+    """Staged VERTICAL rows [B, W] -> (disk words, words per block [B]
+    int64). A block's count is the reference's, SW + bit_len // 32; raises
+    ValueError when its sync entries do not describe exactly that many
+    words (a width above 32 or more than EXC_CAP exceptions included), or
+    when the rows are narrower than padded_words_vertical."""
     B, W = payload.shape
     S = subs_per_block(block_len)
     SW = sync_words(block_len)
     dev = payload.device
+    if W < padded_words_vertical(block_len):
+        raise ValueError(BAD_PAYLOAD_ROW)
     b, n_exc, _, vw = parse_sync(payload[:, :SW], S)
     wc_sub = region_word_counts(b, n_exc, vw, block_len)  # [B, S]
+    wc = SW + bit_len.to(torch.int64) // 32
+    bad = (b > 32) | (n_exc > EXC_CAP)
+    if bool(bad.any()) or bool((SW + wc_sub.sum(1) != wc).any()):
+        raise ValueError(BAD_VERTICAL_TABLE)
     row0 = torch.arange(B, device=dev)[:, None] * W
     starts = torch.cat(
         [row0, row0 + SW + torch.arange(S, device=dev) * REGION_PAD], dim=1
     )
     lens = torch.cat([torch.full((B, 1), SW, device=dev), wc_sub], dim=1)
     words = payload.reshape(-1)[segment_index(starts.reshape(-1), lens.reshape(-1))]
-    return words, lens.sum(1)
+    return words, wc
 
 
 def stage_vertical(

@@ -161,7 +161,7 @@ def test_stage_times_and_config_checks():
     out = api.decompress(read_frame(write_frame(frame)), device="cpu",
                          stage_ms=dec_ms)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
-    assert {"select", "interleave"} <= set(enc_ms)
+    assert {"select", "compact", "download"} <= set(enc_ms)
     assert {"reconstruct", "download"} <= set(dec_ms)
     assert all(v >= 0 for v in [*enc_ms.values(), *dec_ms.values()])
     with pytest.raises(ValueError, match="unknown coder"):

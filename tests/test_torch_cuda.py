@@ -1,7 +1,7 @@
-"""The CUDA kernels K1-K9, R and VC (and the x forms of K2, K3, K5a and K6, the
-words forms of K4 and K5b, and K9's disk-order planes) against their plain
-twins, on the card, the launches of the round trips, and the sharded path
-over two shards of the card with the device guard of every launch.
+"""The CUDA kernels K1-K9, R, VC and CP (and the x forms of K2, K3, K5a and K6,
+the words forms of K4 and K5b, and K9's disk-order planes) against their
+plain twins, on the card, the launches of the round trips, and the sharded
+path over two shards of the card with the device guard of every launch.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -26,6 +26,7 @@ from dctpu_torch.dist import compress_sharded, decompress_sharded
 from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
     _build,
+    compact,
     exc_extract,
     pack,
     ragged,
@@ -89,7 +90,7 @@ def test_kernels_match_twins_on_card(cuda, L):
               select_bp.adaptive_totals_lpc_plain(x, h, n, coeffs, L, 24))
     emitted = vemit.vertical_emit_rows_z(z, n, L)
     _same(emitted, vemit.vertical_emit_rows_z_plain(z, n, L))
-    flat, wc = ragged.compact_vertical(emitted[0], L)
+    flat, wc = ragged.compact_vertical(emitted[0], emitted[1], L)
     start = torch.cumsum(wc, 0) - wc
     _same((vdec.decode_vertical_words(flat, start, wc, n, L),),
           (vdec.decode_vertical_words_plain(flat, start, wc, n, L),))
@@ -231,8 +232,8 @@ def test_decode_words_match_twins_on_card(cuda, L):
     _same((unpack.rice_unpack_words(words, start, count, k, n, L),),
           (unpack.rice_unpack_words_plain(words, start, count, k, n, L),))
 
-    rows = vemit.vertical_emit_rows_z(z, n, L)[0]
-    words, start, count = scatter_blocks(*ragged.compact_vertical(rows, L),
+    rows, vbits = vemit.vertical_emit_rows_z(z, n, L)
+    words, start, count = scatter_blocks(*ragged.compact_vertical(rows, vbits, L),
                                          seed=L + 1)
     _same((vdec.decode_vertical_words(words, start, count, n, L),),
           (vdec.decode_vertical_words_plain(words, start, count, n, L),))
@@ -377,10 +378,11 @@ def test_backend_paths_on_card(cuda):
 
 @pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
 def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
-    """R once per decode range (here one), K3's x form and K4 once per
-    VERTICAL group, K5a's x form and K5b once per RICE group; the plain
-    stages they replace (the winner's residuals of either emission and the
-    staging of the decode's rows among them) never run on the card."""
+    """R and CP once per decode and encode range (here one), K3's x form
+    and K4 once per VERTICAL group, K5a's x form and K5b once per RICE
+    group; the plain stages they replace (the winner's residuals of either
+    emission, the staging of the decode's rows and the segment copies of
+    the compaction among them) never run on the card."""
     cfg = CodecConfig(block_len=1000, coder=coder)
     streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
                                       cumulative_frac=0.5)
@@ -391,9 +393,11 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     monkeypatch.setattr(predict, "chosen_residuals", _refuse)
     monkeypatch.setattr(ragged, "stage_vertical", _refuse)
     monkeypatch.setattr(ragged, "pad_payload", _refuse)
+    monkeypatch.setattr(ragged, "segment_index", _refuse)
     counted = (reconstruct.reconstruct, vemit.vertical_emit_rows,
                vemit.vertical_emit_rows_z, vdec.decode_vertical_words,
-               unpack.rice_unpack_words, pack.rice_pack_rows, pack.rice_pack)
+               unpack.rice_unpack_words, pack.rice_pack_rows, pack.rice_pack,
+               compact.compact_range)
     for fn in counted:
         fn.launches = 0
     frame = api.compress(streams, cfg, ids, cads, device=cuda)
@@ -402,8 +406,52 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     out = api.decompress(read_frame(write_frame(frame)), device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
     assert [fn.launches for fn in counted] == [1, vert, 0, vert,
-                                               groups - vert, groups - vert, 0]
+                                               groups - vert, groups - vert, 0, 1]
     assert groups == (2 if coder == "adaptive" else 1)
+
+
+@pytest.mark.parametrize("B, L", [(256, 200), (32, 12000)])
+def test_compact_range_matches_twin_on_card(cuda, B, L):
+    """CP equals its twin on the blocks dealt to two shuffled coder groups
+    (RICE rows from K5a's z form first, VERTICAL rows from K3's z form
+    second), and raises the twin's ValueError for a bad VERTICAL sync
+    entry."""
+    z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 31, B=B))
+    args = (*chip_smoke.compact_groups(*pack.rice_pack(z, k, n, L),
+                                       *vemit.vertical_emit_rows_z(z, n, L),
+                                       seed=L), L)
+    compact.compact_range.launches = 0
+    _same(compact.compact_range(*args), compact.compact_range_plain(*args))
+    assert compact.compact_range.launches == 1
+    rows_b = args[1]
+    rows_b[0, 0] = (rows_b[0, 0] & -(1 << 16)) | 40  # sub 0: b = 40
+    with pytest.raises(ValueError, match="sync table does not match"):
+        compact.compact_range(*args)
+    with pytest.raises(ValueError, match="sync table does not match"):
+        compact.compact_range_plain(*args)
+
+
+@pytest.mark.parametrize("coder, backend, chunk_blocks", [
+    ("adaptive", None, None), ("vertical", "pallas", None), ("rice", None, 7),
+])
+def test_card_compress_runs_no_segment_copies(cuda, monkeypatch, coder,
+                                              backend, chunk_blocks):
+    """A card compress compacts each encode range with one CP launch and
+    calls no ragged.segment_index, copy_segments or repeat_interleave; its
+    frame is the CPU's."""
+    cfg = CodecConfig(block_len=1000, coder=coder)
+    streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
+                                      cumulative_frac=0.5)
+    want = write_frame(api.compress(streams, cfg, ids, cads, device="cpu"))
+    monkeypatch.setattr(ragged, "segment_index", _refuse)
+    monkeypatch.setattr(ragged, "copy_segments", _refuse)
+    monkeypatch.setattr(torch, "repeat_interleave", _refuse)
+    compact.compact_range.launches = 0
+    frame = api.compress(streams, cfg, ids, cads, device=cuda, backend=backend,
+                         chunk_blocks=chunk_blocks)
+    B = frame.blocks.num_blocks
+    assert write_frame(frame) == want
+    assert compact.compact_range.launches == len(api.block_ranges(B, chunk_blocks))
 
 
 def test_sharded_two_shards_on_card(cuda):

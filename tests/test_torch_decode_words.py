@@ -120,13 +120,13 @@ def _vertical_inputs(rng, L, B=6):
 def _vertical_words(rng, L):
     z, n = _vertical_inputs(rng, L)
     nj = jnp.asarray(n)
-    payload, _ = ref_encode_vertical(jnp.asarray(z), nj, L, exc_backend="xla")
+    payload, bits = ref_encode_vertical(jnp.asarray(z), nj, L, exc_backend="xla")
     if L % 128 == 0:
         want = decode_vertical_mega(payload, nj, L, interpret=True)
     else:
         want = ref_decode_vertical(payload, nj, L)
     rows = torch.from_numpy(np.array(payload).view(np.int32))
-    flat, wc = ragged.compact_vertical(rows, L)
+    flat, wc = ragged.compact_vertical(rows, torch.from_numpy(np.array(bits)), L)
     return z, n, np.asarray(want), flat, wc
 
 

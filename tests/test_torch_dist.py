@@ -129,7 +129,8 @@ def test_sharded_stage_times(corpus):
     frame = compress_sharded(streams, cfg, [CPU] * 2, ids, cads, chunk_blocks=16,
                              stage_ms=enc_ms)
     decompress_sharded(frame, [CPU] * 2, chunk_blocks=16, stage_ms=dec_ms)
-    assert {"upload", "select", "emit_rice", "emit_vertical", "interleave"} <= set(enc_ms)
+    assert {"upload", "select", "emit_rice", "emit_vertical", "compact",
+            "download"} <= set(enc_ms)
     assert {"upload", "decode_rice", "decode_vertical", "reconstruct",
             "download"} <= set(dec_ms)
 

@@ -19,9 +19,9 @@ from dctpu.config import CodecConfig as RefConfig
 from dctpu.config import LpcTable as RefLpcTable
 from dctpu.kernels.vemit_pallas import vertical_emit_mega
 from dctpu.kernels.vertical_xla import encode_vertical as ref_encode_vertical
-from dctpu_torch.codec import api, encode
+from dctpu_torch.codec import encode
 from dctpu_torch.config import DEFAULT_LPC_TABLES, from_reference
-from dctpu_torch.kernels import ragged, vemit
+from dctpu_torch.kernels import compact, ragged, vemit
 from tests.test_adaptive import _mixed_streams
 
 
@@ -82,7 +82,7 @@ def test_encode_vertical_rows_match_reference(rng, L):
     p_ref = np.asarray(p_ref)
     assert np.array_equal(p.numpy().view(np.uint32), p_ref)
     # compaction and staging: the host transforms of the reference
-    words, wc = ragged.compact_vertical(p, L)
+    words, wc = ragged.compact_vertical(p, bl, L)
     w_ref, wc_ref = vertical_host.compact_vertical(p_ref, L)
     assert np.array_equal(words.numpy().view(np.uint32), w_ref)
     assert np.array_equal(wc.numpy(), wc_ref)
@@ -131,7 +131,7 @@ def test_group_emit_and_compaction_match_reference(mixed_blocks, gid, gname):
         t["x"], t["n"], t["h"], t["c"], t["k"], cfg, gname
     )
     assert np.array_equal(bl.numpy(), bl_ref)
-    words, wc = api.compact_enc_payload(payload, bl, 512, gname)
+    words, wc = compact.compact_enc_payload(payload, bl, 512, gname)
     assert np.array_equal(words.numpy().view(np.uint32), w_ref)
     assert int(wc.sum()) == w_ref.size
 
