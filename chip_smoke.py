@@ -27,10 +27,13 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      block's row read from one of two shuffled coder groups) on every
      predictor and table, with histories at the int32 extremes, timed also
      with every block on one predictor at 8192 and 512 blocks beside
-     torch.cumsum as DELTA's yardstick, CP (the encode's compaction) on
-     the blocks' RICE and VERTICAL rows dealt to two shuffled coder groups,
-     beside one torch copy_ of as many words as its yardstick, with a bad
-     VERTICAL sync entry that must raise, and the decode kernels
+     torch.cumsum as DELTA's yardstick, CP (the encode's compaction) and
+     its count pass on the blocks' RICE and VERTICAL rows, each coder
+     group's in block order as the encode stacks them, CP timed (median,
+     min and max of 5 timings) beside one torch copy_ of as many words as
+     its yardstick, timed the same way, with a bad VERTICAL sync entry
+     that must raise, and the
+     decode kernels
      K4 and K5b on the compact words of their blocks, laid out in a
      shuffled order between words of no block, a few RICE blocks cut
      short, and a bad VERTICAL sync entry that must raise;
@@ -43,8 +46,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      VC-xbp once and VC-lpc once per LPC candidate on the vertical paths,
      never on the others;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
-     paths; R once per decode range (here one) in every decode, CP once
-     per encode range (here one) in every encode, K5b once
+     paths; R once per decode range (here one) in every decode, CP and
+     its count pass once per encode range (here one) in every encode, K5b
+     once
      per RICE group and K4 once per VERTICAL group; K3 once per VERTICAL
      group and its z form never; K5a's x form once per RICE group and its
      z form never), and the plain torch stages that R, K3, K4, K5a, K5b, VC
@@ -73,7 +77,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      path's kernel times, the adaptive RICE group's 1351 blocks beside
      the rice path's 8192), and CP on the adaptive range's coder groups,
      its arguments kept from one more adaptive compress (words equal to
-     the frame's);
+     the frame's; timed as above), with the compact stage split once into
+     its count pass, its host read and its copy;
   4. drives the distribution layer on the same corpus: compress_sharded ->
      decompress_sharded of each coder over make_mesh() (the one card, in
      chunks of 2048 blocks) and of the adaptive coder over [cuda:0,
@@ -154,6 +159,15 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def time_spread(fn, reps: int = 5) -> dict:
+    """time_ms(fn, 10) taken reps times: {"median", "min", "max"} ms, the
+    spread of one kernel's time between calls."""
+    import statistics
+
+    ms = [time_ms(fn, 10) for _ in range(reps)]
+    return {"median": statistics.median(ms), "min": min(ms), "max": max(ms)}
 
 
 def max_abs_err(got, want) -> int:
@@ -252,18 +266,21 @@ def split_groups(z, seed):
 
 def compact_groups(rice, rice_bits, vert, vert_bits, seed):
     """CP's inputs for blocks with both coders' rows (row b of rice and of
-    vert, bit lengths rice_bits and vert_bits): the blocks dealt by
-    split_groups, RICE rows in the first group and VERTICAL rows in the
-    second, each in a shuffled order -> (rows_a, rows_b, src, coder,
-    bit_len)."""
+    vert, bit lengths rice_bits and vert_bits): each block's coder drawn
+    at random (block 0 RICE, block 1 VERTICAL), each group's rows in block
+    order, RICE first, as the encode stacks them -> (rows_a, rows_b,
+    coder, bit_len)."""
+    import numpy as np
     import torch
 
-    B = rice.shape[0]
-    ids = torch.arange(B, dtype=torch.int32, device=rice.device)[:, None]
-    ids_a, ids_b, src = split_groups(ids, seed)
-    coder = (src < 0).to(torch.int32)
+    rng = np.random.default_rng(seed)
+    vertical = rng.random(rice.shape[0]) >= 0.5
+    vertical[:2] = False, True
+    coder = torch.from_numpy(vertical.astype(np.int32)).to(rice.device)
     bit_len = torch.where(coder == 1, vert_bits, rice_bits)
-    return rice[ids_a[:, 0].long()], vert[ids_b[:, 0].long()], src, coder, bit_len
+    ia, ib = (torch.from_numpy(np.nonzero(sel)[0]).to(rice.device)
+              for sel in (~vertical, vertical))
+    return rice[ia], vert[ib], coder, bit_len
 
 
 def bound(nbytes: float, ops: float):
@@ -317,7 +334,8 @@ def work(key, B, L, n, b, rows_words, preds):
     of each block, rows_words["K4"] and ["K5b"] in all, with its start
     (8 bytes) and count. CP reads and writes rows_words["CP"] live words,
     with each block's src, coder, word count and offset, and does no
-    arithmetic to speak of."""
+    arithmetic to speak of; its count pass reads each block's coder and
+    bit length and writes its word count, offset and src, and the total."""
     v = int(n.clamp(0, L).sum())
     K1 = K_MAX + 1
     R = B * -(-L // 128)
@@ -355,6 +373,7 @@ def work(key, B, L, n, b, rows_words, preds):
         "K8": (sub_bytes * (128 + 1 + 4 + 16), 4 * 128 * R),
         "K9": (sub_bytes * 128 * 2, 15 * 128 * R),
         "CP": (8 * rows_words["CP"] + 24 * B + 4, 0),
+        "CP-count": (32 * B + 8, 0),
     }[key]
 
 
@@ -399,6 +418,8 @@ RECS = {
                "dctpu/kernels/vertical_xla.py:263"),
     "CP": ("CP compact_range", "dctpu_torch/csrc/compact.cu",
            "dctpu/kernels/ragged.py:192"),
+    "CP-count": ("CP count_range (count pass)", "dctpu_torch/csrc/compact.cu",
+                 "dctpu/codec/api.py:458"),
 }
 
 
@@ -439,8 +460,9 @@ def check_kernels(dev):
     from dctpu_torch.kernels.compact import (
         compact_range,
         compact_range_plain,
+        count_range,
+        count_range_plain,
         launch_compact,
-        word_counts,
     )
     from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
     from dctpu_torch.kernels.pack import (
@@ -554,8 +576,8 @@ def check_kernels(dev):
         r_count[5] = 0
         v_words, v_start, v_count = scatter_blocks(
             *ragged.compact_vertical(rows, vbits, L), seed=300 + si)
-        # CP compacts the blocks' RICE and VERTICAL rows dealt to two
-        # shuffled coder groups
+        # CP compacts the blocks' RICE and VERTICAL rows, each group's in
+        # block order
         cp_args = (*compact_groups(payload, bit_len, rows, vbits, 500 + si), L)
         # K8 and K9 take the staged emission's inputs: the sub-block rows
         # (zero past n), with the width rule's b for K8 (b = 0 and 32 on two
@@ -620,6 +642,8 @@ def check_kernels(dev):
                                                    z_second),)),
             "CP": (lambda: compact_range(*cp_args),
                    lambda: compact_range_plain(*cp_args)),
+            "CP-count": (lambda: count_range(*cp_args[2:]),
+                         lambda: count_range_plain(*cp_args[2:])),
         }
         for key, (kern, plain) in cases.items():
             got, want = kern(), plain()
@@ -648,20 +672,14 @@ def check_kernels(dev):
                 if key == "K4":  # the kernel; the wrapper adds a host read
                     r["wrapper_ms"] = time_ms(kern, 10)
                     kern = lambda: launch_vdec_words(v_words, v_start, v_count, n, L)  # noqa: E731
-                if key == "CP":  # the launch; the wrapper adds two host reads
+                if key == "CP":  # the copy; the wrapper adds the count
+                    # pass and two host reads
                     r["wrapper_ms"] = time_ms(kern, 10)
-                    cp_wc = word_counts(cp_args[3], cp_args[4], L)
-                    cp_off = torch.cumsum(cp_wc, 0) - cp_wc
-                    cp_total = int(cp_wc.sum())
-                    cp_buf = torch.empty(cp_total + 1, dtype=torch.int32,
-                                         device=dev)
-                    kern = lambda: launch_compact(*cp_args[:4], cp_wc, cp_off,  # noqa: E731
-                                                  cp_buf, L)
-                    # yardstick: one copy_ of as many contiguous words
-                    flat = torch.empty(2 * cp_total, dtype=torch.int32, device=dev)
-                    r["copy_ms"] = time_ms(
-                        lambda: flat[:cp_total].copy_(flat[cp_total:]), 10)
-                r["ms"] = time_ms(kern, 10)
+                    cp_counts = count_range(*cp_args[2:])
+                    cp_total = int(cp_counts[3])
+                    r.update(cp_times(cp_args, cp_counts, "mixed groups"))
+                else:
+                    r["ms"] = time_ms(kern, 10)
                 r["plain_ms"] = time_ms(plain, 3)
                 words = {  # the live words, not the rows' padding
                     "K4": int(v_count.sum()),
@@ -758,19 +776,61 @@ def group_times(dev, frames, recs, streams) -> None:
                   flush=True)
 
 
+def cp_launch(args, counts):
+    """CP's copy on args (rows_a, rows_b, coder, bit_len, L) and the count
+    pass's (wc, off, src, total), into a buffer of its own -> (the launch
+    alone, as a function; the buffer)."""
+    import torch
+
+    from dctpu_torch.kernels.compact import launch_compact
+
+    wc, off, src, total = counts
+    buf = torch.empty(int(total) + 1, dtype=torch.int32, device=wc.device)
+    return (lambda: launch_compact(args[0], args[1], src, args[2], wc, off,
+                                   buf, args[-1]), buf)
+
+
+def cp_times(args, counts, what) -> dict:
+    """CP's copy timed as the median, min and max of 5 time_ms(., 10),
+    beside one torch copy_ of as many contiguous words, timed the same
+    way. Returns the fields of CP's record, for `what` ("mixed groups" or
+    "adaptive range")."""
+    import torch
+
+    total = int(counts[3])
+    fn, _ = cp_launch(args, counts)
+    t = time_spread(fn)
+    flat = torch.empty(2 * total, dtype=torch.int32, device=counts[0].device)
+    c = time_spread(lambda: flat[:total].copy_(flat[total:]))
+    print(f"  CP on the {what} ({counts[0].numel()} blocks, {total} words): "
+          f"median {t['median']:.4f} ms (min {t['min']:.4f}, max "
+          f"{t['max']:.4f}) over 5 timings of 10 launches; one copy_ of as "
+          f"many words median {c['median']:.4f} ms (min {c['min']:.4f}, max "
+          f"{c['max']:.4f})", flush=True)
+    key = "" if what == "mixed groups" else "_" + what.replace(" ", "_")
+    return {f"ms{key}": t["median"], f"ms_spread{key}": t,
+            f"copy_ms{key}": c["median"], f"copy_ms_spread{key}": c}
+
+
 def cp_range_time(dev, streams, ids, cads, frames, recs) -> None:
     """CP on the 128 MiB adaptive range: the adaptive compress run again
     with CP's arguments kept (its two coder groups' rows as the emission
-    leaves them), then CP's launch timed on them, its words equal to the
-    frame's, beside its bytes bound and one torch copy_ of as many
-    contiguous words."""
+    leaves them), then CP's count pass and copy on them, its words equal to
+    the frame's, the copy timed by cp_times beside its bytes bound; and the
+    compact stage split, as the encode runs it, into the count pass, the
+    host read of the total and the copy (the buffer and the launch; the
+    median of 7 splits, CUDA
+    events and host clock), beside the pageable upload of src (host
+    clock) that the count pass replaced."""
+    import statistics
+
     import numpy as np
     import torch
 
     from dctpu_torch.codec import api
     from dctpu_torch.config import CodecConfig
     from dctpu_torch.format import write_frame
-    from dctpu_torch.kernels.compact import launch_compact, word_counts
+    from dctpu_torch.kernels.compact import count_range, launch_compact
 
     kept, real = [], api.compact_range_flagged
 
@@ -786,27 +846,64 @@ def cp_range_time(dev, streams, ids, cads, frames, recs) -> None:
         api.compact_range_flagged = real
     if len(kept) != 1 or write_frame(frame) != frames["adaptive"]:
         fail("the adaptive compress with CP's arguments kept differs")
-    rows_a, rows_b, src, coder, bit_len, L = kept[0]
-    wc = word_counts(coder, bit_len, L)
-    off = torch.cumsum(wc, 0) - wc
-    total = int(wc.sum())
-    buf = torch.empty(total + 1, dtype=torch.int32, device=dev)
-    fn = lambda: launch_compact(rows_a, rows_b, src, coder, wc, off, buf, L)  # noqa: E731
+    rows_a, rows_b, coder, bit_len, L = kept[0]
+    counts = count_range(coder, bit_len, L)
+    fn, buf = cp_launch(kept[0], counts)
     fn()
     if not np.array_equal(buf[:-1].cpu().numpy().view(np.uint32),
                           frame.payload_words) or int(buf[-1]):
         fail("CP's words on the adaptive range differ from the frame's")
-    ms = time_ms(fn, 10)
-    flat = torch.empty(2 * total, dtype=torch.int32, device=dev)
-    copy_ms = time_ms(lambda: flat[:total].copy_(flat[total:]), 10)
-    b_ms, _ = bound(8 * total + 24 * src.numel() + 4, 0)
     r = recs["CP"]
-    r["ms_adaptive_range"], r["copy_ms_adaptive_range"] = ms, copy_ms
-    r["bound_ms_adaptive_range"] = b_ms
-    print(f"  CP on the adaptive range ({src.numel()} blocks, RICE "
-          f"{rows_a.shape[0]} / VERTICAL {rows_b.shape[0]}, {total} words, "
-          f"equal to the frame's): {ms:.4f} ms, bytes bound {b_ms:.4f} ms; "
-          f"one copy_ of {total} words {copy_ms:.4f} ms", flush=True)
+    r.update(cp_times(kept[0], counts, "adaptive range"))
+    total = buf.numel() - 1
+    r["bound_ms_adaptive_range"], _ = bound(8 * total + 24 * coder.numel() + 4, 0)
+    print(f"  CP on the adaptive range: RICE {rows_a.shape[0]} / VERTICAL "
+          f"{rows_b.shape[0]} blocks, words equal to the frame's, bytes "
+          f"bound {r['bound_ms_adaptive_range']:.4f} ms", flush=True)
+
+    def split_once():
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        t = [time.perf_counter()]
+        wc, off, src, total = count_range(coder, bit_len, L)
+        t.append(time.perf_counter())
+        ev[1].record()
+        total = int(total)
+        t.append(time.perf_counter())
+        ev[2].record()
+        buf = torch.empty(total + 1, dtype=torch.int32, device=dev)
+        launch_compact(rows_a, rows_b, src, coder, wc, off, buf, L)
+        t.append(time.perf_counter())
+        ev[3].record()
+        torch.cuda.synchronize()
+        return ([a.elapsed_time(b) for a, b in zip(ev, ev[1:])],
+                [1e3 * (b - a) for a, b in zip(t, t[1:])], src)
+
+    runs = [split_once() for _ in range(7)]
+    parts = ("count pass", "host read", "copy")
+    split, host = ({k: statistics.median(run[j][i] for run in runs)
+                    for i, k in enumerate(parts)} for j in (0, 1))
+    src = runs[-1][2]
+    coder_h = coder.cpu().numpy()
+    src_h = np.empty(coder_h.size, np.int32)
+    for gid, first in ((0, True), (1, not (coder_h == 0).any())):
+        idx = np.nonzero(coder_h == gid)[0]
+        within = np.arange(idx.size, dtype=np.int32)
+        src_h[idx] = within if first else -1 - within
+    t2 = time.perf_counter()
+    src_up = torch.from_numpy(src_h).to(dev)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    if not torch.equal(src_up, src):
+        fail("the count pass's src differs from the host's")
+    r["compact_stage_split_ms"], r["compact_stage_host_ms"] = split, host
+    print("  compact stage on the adaptive range, split, median of 7 (CUDA "
+          "events, ms): " + json.dumps({k: round(v, 5) for k, v in split.items()})
+          + "; host clock of each call (the wrappers, the read): "
+          + json.dumps({k: round(v, 5) for k, v in host.items()})
+          + f"; the pageable upload of src that the count pass replaced "
+          f"{1e3 * (t3 - t2):.4f} ms, host clock", flush=True)
 
 
 def bad_vertical_check(words, start, count, n, L) -> None:
@@ -880,6 +977,7 @@ def counters():
         "VC-xbp": (vertical_cost.vertical_cost_xbp,),
         "VC-lpc": (vertical_cost.vertical_cost_lpc,),
         "CP": (compact.compact_range,),
+        "CP-count": (compact.count_range,),
     }
 
 
@@ -897,12 +995,14 @@ def read_counters() -> dict:
 # (coder, backend)
 NEEDS = {
     ("adaptive", None): ("K1", "K2", "K2-lpc", "K3", "K4", "K5a", "K5b", "R",
-                         "CP"),
-    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc", "R", "CP"),
-    ("vertical", None): ("K3", "K4", "R", "VC-xbp", "VC-lpc", "CP"),
+                         "CP", "CP-count"),
+    ("rice", None): ("K5a", "K5b", "K6-xbp", "K6-lpc", "R", "CP", "CP-count"),
+    ("vertical", None): ("K3", "K4", "R", "VC-xbp", "VC-lpc", "CP",
+                         "CP-count"),
     ("adaptive", "pallas"): ("K1", "K2", "K2-lpc", "K4", "K5a", "K5b", "K8",
-                             "K9", "R", "CP"),
-    ("vertical", "pallas"): ("K4", "K8", "K9", "R", "VC-xbp", "VC-lpc", "CP"),
+                             "K9", "R", "CP", "CP-count"),
+    ("vertical", "pallas"): ("K4", "K8", "K9", "R", "VC-xbp", "VC-lpc", "CP",
+                             "CP-count"),
 }
 NEVER = {
     ("adaptive", None): ("K3-z", "K5a-z", "K9", "VC-xbp", "VC-lpc"),
@@ -1079,10 +1179,11 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
                   "pad_payload": 0, "vertical_selection_cost": 0,
                   "segment_index": 0, "copy_segments": 0,
                   "repeat_interleave": 0, "staged_flip": 0}
-    if (launches["R"], launches["CP"], launches["K3"], plain) != (
-            1, 1, 0 if staged else int(hist[1] > 0), want_plain):
-        fail(f"R launched {launches['R']} times and CP {launches['CP']} "
-             f"(want 1 each, one per decode and encode range), K3 "
+    if (launches["R"], launches["CP"], launches["CP-count"], launches["K3"],
+            plain) != (1, 1, 1, 0 if staged else int(hist[1] > 0), want_plain):
+        fail(f"R launched {launches['R']} times, CP {launches['CP']} and its "
+             f"count pass {launches['CP-count']} (want 1 each, one per decode "
+             f"and encode range), K3 "
              f"{launches['K3']}, plain stages {plain} (want {want_plain})")
     if (launches["K5b"], launches["K4"]) != (int(hist[0] > 0), int(hist[1] > 0)):
         fail(f"K5b launched {launches['K5b']} times (want one per RICE group), "
@@ -1278,8 +1379,8 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     """The launches of a sharded round trip whose encode and decode each
     cover these block ranges, one pass per range: every kernel of the
     coder's default path once per range and coder group (K2, K6 and
-    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R and CP
-    once per range, and none of the z forms, K7, K8 or K9."""
+    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R, CP and
+    CP's count pass once per range, and none of the z forms, K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
@@ -1291,7 +1392,7 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
         "K5a": rice, "K5a-z": 0, "K5b": rice, "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
         "K8": 0, "K9": 0, "R": r, "VC-xbp": r * vert_sel,
-        "VC-lpc": r * n_lpc * vert_sel, "CP": r,
+        "VC-lpc": r * n_lpc * vert_sel, "CP": r, "CP-count": r,
     }
 
 
@@ -1474,11 +1575,12 @@ def multihost_check(frames, corpus) -> dict:
                   f"{seconds:.2f} s with process start-up; stats "
                   f"{json.dumps({k: lines[0][k] for k in ('global_blocks', 'local_blocks', 'compressed_words')})}; "
                   f"launches {json.dumps(launches)}", flush=True)
-            got = [launches[k] for k in ("K6-xbp", "K5a", "CP", "K5b", "R")]
-            if got != [2, 2, 2, 0, 0]:
-                fail(f"{name}: K6-xbp, K5a, CP, K5b, R launched {got} times "
-                     "(want K6-xbp, K5a and CP once in each process, the "
-                     "decode kernels never)")
+            got = [launches[k]
+                   for k in ("K6-xbp", "K5a", "CP", "CP-count", "K5b", "R")]
+            if got != [2, 2, 2, 2, 0, 0]:
+                fail(f"{name}: K6-xbp, K5a, CP, CP-count, K5b, R launched "
+                     f"{got} times (want K6-xbp, K5a, CP and its count pass "
+                     "once in each process, the decode kernels never)")
     return by_path
 
 

@@ -38,7 +38,11 @@ from dctpu_torch.codec.encode import adaptive_select, emit_blocks, select_blocks
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import CODER_RICE, CODER_VERTICAL, HISTORY_LEN, LPC
 from dctpu_torch.format.frame import BlockHeaders, Frame, StreamDir, plan_blocks
-from dctpu_torch.kernels.compact import compact_range_flagged, host_words
+from dctpu_torch.kernels.compact import (
+    CODER_GROUPS,
+    compact_range_flagged,
+    host_words,
+)
 from dctpu_torch.kernels.pack import padded_words
 from dctpu_torch.kernels.vdec import raise_if_bad
 
@@ -58,7 +62,7 @@ _FLAT_PATH_MAX_MEAN_LEN = 1536
 # the reference decoder's backend names (dctpu/codec/api.py
 # _decode_blocks_array, dctpu/kernels/api.py unpack)
 DECODE_BACKENDS = (None, "auto", "scan", "scan_xla", "xla", "pallas")
-_CODERS = ((CODER_RICE, "rice"), (CODER_VERTICAL, "vertical"))
+_CODERS = CODER_GROUPS  # in the order CP stacks their payload rows
 _CODER_ID = {name: gid for gid, name in _CODERS}
 
 
@@ -303,10 +307,11 @@ def select_range(x_h, n_h, hist_h, cfg: CodecConfig, device, backend=None,
 def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
     """Second half of a range's encode, from :func:`select_range`'s
     tensors: group the blocks by coder (one host read), emit each group,
-    then one CP (``kernels/compact.py``) writes every block's compact words
-    in block order (one host read, of their total), and the words and the
-    per-block arrays cross to the host. Returns host arrays (choice, coder,
-    k, bit_len, words uint32)."""
+    stacking its payload rows behind the previous group's, then CP
+    (``kernels/compact.py``: its count pass, one host read of the range's
+    word total, its copy) writes every block's compact words in block
+    order, and the words and the per-block arrays cross to the host.
+    Returns host arrays (choice, coder, k, bit_len, words uint32)."""
     x, n, hist, choice, coder, kk = sel
     device = x.device
     stage = stage or _Stages(None, device)
@@ -315,16 +320,12 @@ def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
     coder_h = coder.cpu().numpy()
 
     bit_len = torch.zeros(B, dtype=torch.int64, device=device)
-    # each block's row in its group's payload: >= 0 in the first group,
-    # -1 - row in the second
-    src_h = np.empty(B, np.int32)
+    # each group's rows in block order, the groups in CP's order
     rows = []
     for gid, gname in _CODERS:
         idx_h = np.nonzero(coder_h == gid)[0]
         if idx_h.size == 0:
             continue
-        within = np.arange(idx_h.size, dtype=np.int32)
-        src_h[idx_h] = -1 - within if rows else within
         idx = torch.from_numpy(idx_h).to(device)
         with stage(f"emit_{gname}"):
             payload, bl = emit_blocks(
@@ -336,9 +337,7 @@ def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
     rows += [None] * (2 - len(rows))
 
     with stage("compact"):
-        buf, _ = compact_range_flagged(
-            rows[0], rows[1], torch.from_numpy(src_h).to(device), coder,
-            bit_len, L)
+        buf, _ = compact_range_flagged(rows[0], rows[1], coder, bit_len, L)
     with stage("download"):
         words_h = host_words(buf)
         out = [t.cpu().numpy() for t in (choice, kk, bit_len)]

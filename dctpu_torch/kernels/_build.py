@@ -59,6 +59,7 @@ SIGNATURES = {
     "dct_reconstruct": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _P),
     "dct_vertical_cost_xbp": (_P, _P, _P, _P, _I, _I, _P),
     "dct_vertical_cost_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "dct_count_range": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
     "dct_compact_range": (_P, _I, _I, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I,
                           _I, _P),
 }

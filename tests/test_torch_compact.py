@@ -90,6 +90,8 @@ def _coders(layout):
         return np.arange(B) % 2
     if layout in ("rice_only", "vertical_only"):
         return np.full(B, int(layout == "vertical_only"))
+    if layout == "vertical_first":  # VERTICAL blocks, then RICE ones
+        return (np.arange(B) < B // 2).astype(np.int64)
     return np.random.default_rng(3).integers(0, 2, size=B)
 
 
@@ -121,61 +123,105 @@ def reference_range(ref, coder, L):
     return out, wc
 
 
-def port_groups(port, coder, vertical_first=False, seed=None):
-    """(rows_a, rows_b, src, bit_len) of a range whose blocks take their
-    coder's rows: RICE in the first group unless vertical_first, each
-    group's rows in block order, or shuffled with seed."""
-    rng = np.random.default_rng(seed)
-    order = ("vertical", "rice") if vertical_first else CODERS
-    src = np.empty(B, np.int32)
+def port_groups(port, coder):
+    """(rows_a, rows_b, bit_len) of a range whose blocks take their coder's
+    rows: each group's rows in block order, the RICE group first where the
+    range has one (the layout the encode stacks them in)."""
     bit_len = torch.zeros(B, dtype=torch.int64)
     groups = []
-    for gname in order:
-        idx = np.nonzero(coder == CODERS.index(gname))[0]
-        if idx.size == 0:
+    for gname in CODERS:
+        idx = torch.from_numpy(np.nonzero(coder == CODERS.index(gname))[0])
+        if idx.numel() == 0:
             continue
-        perm = rng.permutation(idx.size) if seed is not None else np.arange(idx.size)
-        rows = torch.empty((idx.size, port[gname][0].shape[1]), dtype=torch.int32)
-        rows[torch.from_numpy(perm)] = port[gname][0][torch.from_numpy(idx)]
-        src[idx] = -1 - perm if groups else perm
-        bit_len[torch.from_numpy(idx)] = port[gname][1][torch.from_numpy(idx)]
-        groups.append(rows)
+        groups.append(port[gname][0][idx])
+        bit_len[idx] = port[gname][1][idx]
     groups += [None] * (2 - len(groups))
-    return groups[0], groups[1], torch.from_numpy(src), bit_len
+    return groups[0], groups[1], bit_len
 
 
 @pytest.mark.parametrize("layout", ["interleaved", "rice_only", "vertical_only",
-                                    "mixed", "mixed_shuffled"])
+                                    "mixed", "vertical_first"])
 def test_compact_range_matches_reference(emitted, layout):
     L, port, ref = emitted
     coder = _coders(layout)
     want, want_wc = reference_range(ref, coder, L)
-    shuffled = layout == "mixed_shuffled"
-    rows_a, rows_b, src, bit_len = port_groups(
-        port, coder, vertical_first=shuffled, seed=9 if shuffled else None)
-    words, wc = compact.compact_range(rows_a, rows_b, src,
-                                      torch.from_numpy(coder), bit_len, L)
+    rows_a, rows_b, bit_len = port_groups(port, coder)
+    words, wc = compact.compact_range(rows_a, rows_b, torch.from_numpy(coder),
+                                      bit_len, L)
     assert words.dtype == torch.int32 and wc.dtype == torch.int64
     assert np.array_equal(words.numpy().view(np.uint32), want)
     assert np.array_equal(wc.numpy(), want_wc)
 
 
+def emit_range_counts(coder_h, bit_len, L):
+    """What the encode computed around CP before the count pass: each
+    block's source row by a host loop over the coder groups (the RICE group
+    first), word_counts, their exclusive cumsum and their total."""
+    src_h = np.empty(coder_h.size, np.int32)
+    seen = False
+    for gid in range(len(CODERS)):
+        idx = np.nonzero(coder_h == gid)[0]
+        if idx.size == 0:
+            continue
+        within = np.arange(idx.size, dtype=np.int32)
+        src_h[idx] = -1 - within if seen else within
+        seen = True
+    wc = compact.word_counts(torch.from_numpy(coder_h), bit_len, L)
+    return src_h, wc, torch.cumsum(wc, 0) - wc, int(wc.sum())
+
+
+# (blocks taken, the layout of their coders)
+COUNT_LAYOUTS = {
+    "empty": ([], "rice_only"),
+    "rice_only": (list(range(B)), "rice_only"),
+    "vertical_only": (list(range(B)), "vertical_only"),
+    "interleaved": (list(range(B)), "interleaved"),
+    "mixed": (list(range(B)), "mixed"),
+    "one_block": ([3], "vertical_only"),
+}
+
+
+@pytest.mark.parametrize("layout", list(COUNT_LAYOUTS))
+def test_count_range_matches_emit_range_counts(emitted, layout):
+    """The count pass's twin gives what the encode computed before it (the
+    host's source rows, word_counts, the cumsum and the total) and the
+    reference's word counts."""
+    L, port, ref = emitted
+    blocks, coders = COUNT_LAYOUTS[layout]
+    coder_full = _coders(coders)
+    _, ref_wc = reference_range(ref, coder_full, L)
+    coder = coder_full[blocks].astype(np.int32)
+    sel = torch.tensor(blocks, dtype=torch.int64)
+    bit_len = torch.where(torch.from_numpy(coder) == 1,
+                          port["vertical"][1][sel], port["rice"][1][sel])
+    wc, off, src, got_total = compact.count_range(torch.from_numpy(coder),
+                                                  bit_len, L)
+    src_h, want_wc, want_off, total = emit_range_counts(coder, bit_len, L)
+    assert (wc.dtype, off.dtype, src.dtype) == (torch.int64, torch.int64,
+                                                torch.int32)
+    assert np.array_equal(src.numpy(), src_h)
+    assert torch.equal(wc, want_wc) and torch.equal(off, want_off)
+    assert np.array_equal(wc.numpy(), ref_wc[blocks])
+    assert got_total.tolist() == [total]
+
+
 def test_compact_range_of_an_empty_range():
     empty = torch.zeros(0, dtype=torch.int32)
-    words, wc = compact.compact_range(None, None, empty, empty,
+    words, wc = compact.compact_range(None, None, empty,
                                       torch.zeros(0, dtype=torch.int64), 4096)
     assert words.shape == (0,) and wc.shape == (0,)
-    buf, _ = compact.compact_range_flagged(None, None, empty, empty,
+    buf, _ = compact.compact_range_flagged(None, None, empty,
                                            torch.zeros(0, dtype=torch.int64), 4096)
     assert compact.host_words(buf).shape == (0,)
 
 
 def _bad(emitted, fault):
     """A vertical-only range with one fault in block 5 (or, for
-    rice_overflow, a RICE range whose bit length passes its rows)."""
+    rice_overflow, a RICE range whose bit length passes its rows; for
+    src_outside, the last block's source row missing from its group)."""
     L, port, _ = emitted
     coder = _coders("rice_only" if fault == "rice_overflow" else "vertical_only")
-    rows_a, rows_b, src, bit_len = port_groups(port, coder)
+    rows_a, rows_b, bit_len = port_groups(port, coder)
     i, SW = 5, sync_words(L)
     sub1 = rows_a[i, 0] & -(1 << 16)  # keep sub 1's half, rewrite sub 0's
     if fault == "width":
@@ -187,8 +233,8 @@ def _bad(emitted, fault):
     elif fault == "rice_overflow":
         bit_len[i] = 32 * (rows_a.shape[1] - SW) + 1
     else:  # src_outside
-        src[i] = rows_a.shape[0]
-    return rows_a, rows_b, src, torch.from_numpy(coder), bit_len, L
+        rows_a = rows_a[:-1]
+    return rows_a, rows_b, torch.from_numpy(coder), bit_len, L
 
 
 @pytest.mark.parametrize("fault, message", [

@@ -378,7 +378,8 @@ def test_backend_paths_on_card(cuda):
 
 @pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
 def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
-    """R and CP once per decode and encode range (here one), K3's x form
+    """R and CP (its count pass and its copy) once per decode and encode
+    range (here one), K3's x form
     and K4 once per VERTICAL group, K5a's x form and K5b once per RICE
     group; the plain stages they replace (the winner's residuals of either
     emission, the staging of the decode's rows and the segment copies of
@@ -397,7 +398,7 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     counted = (reconstruct.reconstruct, vemit.vertical_emit_rows,
                vemit.vertical_emit_rows_z, vdec.decode_vertical_words,
                unpack.rice_unpack_words, pack.rice_pack_rows, pack.rice_pack,
-               compact.compact_range)
+               compact.compact_range, compact.count_range)
     for fn in counted:
         fn.launches = 0
     frame = api.compress(streams, cfg, ids, cads, device=cuda)
@@ -406,23 +407,41 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     out = api.decompress(read_frame(write_frame(frame)), device=cuda)
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
     assert [fn.launches for fn in counted] == [1, vert, 0, vert,
-                                               groups - vert, groups - vert, 0, 1]
+                                               groups - vert, groups - vert, 0, 1,
+                                               1]
     assert groups == (2 if coder == "adaptive" else 1)
 
 
-@pytest.mark.parametrize("B, L", [(256, 200), (32, 12000)])
+@pytest.mark.parametrize("B, L", [
+    (256, 200), (32, 12000),
+    (64, 128),   # one slot
+    (64, 4096),  # 32 slots: one pass of the warp's lanes
+    (48, 4100),  # 33 slots: a second pass, with the first's carry
+    (6, 65536),  # 512 slots: 16 passes
+    (0, 4096),   # no blocks
+])
 def test_compact_range_matches_twin_on_card(cuda, B, L):
-    """CP equals its twin on the blocks dealt to two shuffled coder groups
-    (RICE rows from K5a's z form first, VERTICAL rows from K3's z form
-    second), and raises the twin's ValueError for a bad VERTICAL sync
-    entry."""
-    z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 31, B=B))
-    args = (*chip_smoke.compact_groups(*pack.rice_pack(z, k, n, L),
-                                       *vemit.vertical_emit_rows_z(z, n, L),
-                                       seed=L), L)
-    compact.compact_range.launches = 0
+    """CP and its count pass equal their twins, each launched once a call,
+    on blocks of both coders, each group's rows in block order (RICE rows
+    from K5a's z form first, VERTICAL rows from K3's z form second; block
+    1, all zeros, is a VERTICAL block whose slots are all empty); CP
+    raises the twin's ValueError for a bad VERTICAL sync entry."""
+    if B == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=cuda)
+        args = (None, None, empty,
+                torch.zeros(0, dtype=torch.int64, device=cuda), L)
+    else:
+        z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 31, B=B))
+        rice, vert = pack.rice_pack(z, k, n, L), vemit.vertical_emit_rows_z(z, n, L)
+        args = (*chip_smoke.compact_groups(*rice, *vert, seed=L), L)
+    coder, bit_len = args[2:4]
+    compact.count_range.launches = compact.compact_range.launches = 0
+    _same(compact.count_range(coder, bit_len, L),
+          compact.count_range_plain(coder, bit_len, L))
     _same(compact.compact_range(*args), compact.compact_range_plain(*args))
-    assert compact.compact_range.launches == 1
+    assert (compact.count_range.launches, compact.compact_range.launches) == (2, 1)
+    if B == 0:
+        return
     rows_b = args[1]
     rows_b[0, 0] = (rows_b[0, 0] & -(1 << 16)) | 40  # sub 0: b = 40
     with pytest.raises(ValueError, match="sync table does not match"):
@@ -431,13 +450,29 @@ def test_compact_range_matches_twin_on_card(cuda, B, L):
         compact.compact_range_plain(*args)
 
 
+@pytest.mark.parametrize("B, vertical_share", [
+    (1, 0.5), (1000, 0.5), (70001, 0.8), (5000, 1.0), (5000, 0.0),
+])
+def test_count_range_matches_twin_on_card(cuda, B, vertical_share):
+    """CP's count pass equals its twin over runs of many 32-block steps a
+    warp, with one coder group only and with both."""
+    rng = np.random.default_rng(B)
+    coder = torch.from_numpy(
+        (rng.random(B) < vertical_share).astype(np.int32)).to(cuda)
+    bit_len = torch.from_numpy(rng.integers(0, 5000, size=B)).to(cuda)
+    compact.count_range.launches = 0
+    _same(compact.count_range(coder, bit_len, 4096),
+          compact.count_range_plain(coder, bit_len, 4096))
+    assert compact.count_range.launches == 1
+
+
 @pytest.mark.parametrize("coder, backend, chunk_blocks", [
     ("adaptive", None, None), ("vertical", "pallas", None), ("rice", None, 7),
 ])
 def test_card_compress_runs_no_segment_copies(cuda, monkeypatch, coder,
                                               backend, chunk_blocks):
-    """A card compress compacts each encode range with one CP launch and
-    calls no ragged.segment_index, copy_segments or repeat_interleave; its
+    """A card compress compacts each encode range with one launch of CP's
+    count pass and one of its copy, and calls no ragged.segment_index, copy_segments or repeat_interleave; its
     frame is the CPU's."""
     cfg = CodecConfig(block_len=1000, coder=coder)
     streams, ids, cads = synth_corpus(4, 9000, seed=3, mixed_cadence=True,
@@ -446,12 +481,13 @@ def test_card_compress_runs_no_segment_copies(cuda, monkeypatch, coder,
     monkeypatch.setattr(ragged, "segment_index", _refuse)
     monkeypatch.setattr(ragged, "copy_segments", _refuse)
     monkeypatch.setattr(torch, "repeat_interleave", _refuse)
-    compact.compact_range.launches = 0
+    compact.count_range.launches = compact.compact_range.launches = 0
     frame = api.compress(streams, cfg, ids, cads, device=cuda, backend=backend,
                          chunk_blocks=chunk_blocks)
     B = frame.blocks.num_blocks
     assert write_frame(frame) == want
-    assert compact.compact_range.launches == len(api.block_ranges(B, chunk_blocks))
+    ranges = len(api.block_ranges(B, chunk_blocks))
+    assert compact.count_range.launches == compact.compact_range.launches == ranges
 
 
 def test_sharded_two_shards_on_card(cuda):
