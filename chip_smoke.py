@@ -103,7 +103,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      port's frame back to the input;
   6. runs the port's CLI (``python3 -m dctpu_torch.cli.main verify``, with
      the rice coder and with ``--sharded``) on the card as a subprocess;
-  7. prints one JSON line of the kernels, then the result line.
+  7. runs the port's bench (``dctpu_torch.bench``) at the bench geometry
+     with 3 repeats: exit 0, every coder's round trips bit-exact and its
+     frame's sha256 that of phase 3's frame; prints its headline and each
+     coder's medians and spreads;
+  8. prints one JSON line of the kernels, then the result line.
 
 Any failure exits non-zero. Without a CUDA device it fails; it never runs
 on the CPU instead. ``chip_smoke.py --multihost-worker SPEC`` is one
@@ -1071,20 +1075,6 @@ def plain_calls():
         encode._emit_staged = staged
 
 
-@contextlib.contextmanager
-def peak_bytes(dev, out: dict, key: str):
-    """out[key] = the peak device bytes allocated inside the block above
-    those allocated when it starts (torch.cuda.max_memory_allocated)."""
-    import torch
-
-    torch.cuda.synchronize(dev)
-    before = torch.cuda.memory_allocated(dev)
-    torch.cuda.reset_peak_memory_stats(dev)
-    yield
-    torch.cuda.synchronize(dev)
-    out[key] = torch.cuda.max_memory_allocated(dev) - before
-
-
 def segments() -> int:
     """Device memory segments the caching allocator has obtained so far
     (one cudaMalloc each)."""
@@ -1103,6 +1093,7 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
     import numpy as np
     import torch
 
+    from dctpu_torch.bench import peak_bytes
     from dctpu_torch.codec.api import compress, decompress
     from dctpu_torch.config import CodecConfig
     from dctpu_torch.corpus import synth_corpus
@@ -1370,6 +1361,37 @@ def cli_check() -> None:
                   f"{res.stderr.strip()[-200:]}", flush=True)
             if res.returncode != 0:
                 fail(f"the CLI's verify {' '.join(flags)} failed on the card")
+
+
+def bench_check(frames) -> None:
+    """Phase 7: the port's bench at the bench geometry, 3 repeats, in this
+    process (the kernels are built); its results go to
+    build/dctpu_torch/chip_smoke_bench.json. Fails unless it exits 0 with
+    every coder bit-exact and each coder's frame that of run_path."""
+    import hashlib
+    import io
+
+    from dctpu_torch import bench
+
+    out = ROOT / "build" / "dctpu_torch" / "chip_smoke_bench.json"
+    stdout = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(stdout):
+        rc = bench.main(["--repeats", "3", "--out", str(out)])
+    lines = stdout.getvalue().strip().splitlines()
+    print(f"bench: exit {rc} in {time.perf_counter() - t0:.1f} s, headline "
+          f"{lines[-1] if lines else None}", flush=True)
+    if rc != 0:
+        fail("the bench failed on the card")
+    res = json.loads(out.read_text())
+    for coder in bench.CODERS:
+        for line in bench.report_lines(coder, res[coder]):
+            print(f"bench: {line}")
+        if res[coder]["bit_exact"] is not True:
+            fail(f"the bench's {coder} round trips are not bit-exact")
+        if res[coder]["frame_sha256"] != hashlib.sha256(frames[coder]).hexdigest():
+            fail(f"the bench's {coder} frame differs from the {coder} path's")
+    sys.stdout.flush()
 
 
 # ------------------------------------------------ the distribution layer
@@ -1906,6 +1928,7 @@ def main() -> int:
     cp_range_time(dev, streams, ids, cads, frames, recs)
     oracle_check(streams, ids, cads, frames)
     cli_check()
+    bench_check(frames)
 
     print(json.dumps({"kernels": list(recs.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -1,4 +1,5 @@
-"""dcomp on PyTorch: encode / decode / verify (the port of dctpu/cli/main.py).
+"""dcomp on PyTorch: encode / decode / verify / bench (the port of
+dctpu/cli/main.py).
 
 Reads DCR1 raw corpus containers (or bare little-endian int32 files) and
 writes DCF1 frames, byte-identical to the reference CLI's. Runs on the
@@ -9,10 +10,12 @@ CUDA card unless ``--device cpu`` is given.
       [--fit-tables] [--device cuda|cpu] [--sharded]
   python -m dctpu_torch.cli.main decode in.dcf out.dcr [--device ...] [--sharded]
   python -m dctpu_torch.cli.main verify in.dcr [same flags as encode]
+  python -m dctpu_torch.cli.main bench [--streams N] [--samples N]
+      [--block-len N] [--repeats N] [--device cuda|cpu] [--out PATH]
 
 --sharded splits the blocks over every CUDA device (with --device cuda) or
-over the one device --device names. The reference CLI's bench verb is not
-ported: the port has no benchmark yet.
+over the one device --device names. bench runs dctpu_torch.bench (its
+docstring has the keys) and returns its exit code.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ from pathlib import Path
 
 import numpy as np
 
+from dctpu_torch import bench
 from dctpu_torch.codec.api import compress, decompress
 from dctpu_torch.codec.select import fit_lpc_tables
 from dctpu_torch.config import CodecConfig
@@ -149,6 +153,10 @@ def main(argv=None):
     sp = sub.add_parser("verify", help="round-trip self check")
     common(sp)
     sp.set_defaults(fn=cmd_verify)
+
+    sp = sub.add_parser("bench", help="time the three coders' round trips")
+    bench.add_arguments(sp)
+    sp.set_defaults(fn=bench.run)
 
     args = p.parse_args(argv)
     return args.fn(args) or 0

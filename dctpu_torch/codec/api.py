@@ -21,7 +21,11 @@ more over a list of devices.
 ``stage_ms``: pass a dict to have each stage's time added to it in
 milliseconds, measured with CUDA events on a CUDA device (the device
 timeline between the stage's start and end) and with the host clock on
-the CPU.
+the CPU. The entries named ``host_*`` are the host numpy work around the
+device stages, on the host clock on every device: ``host_build_blocks``
+and ``host_frame_assembly`` of an encode, ``host_block_table`` (the
+block table's check and word offsets) and ``host_split_streams`` of a
+decode.
 """
 
 from __future__ import annotations
@@ -383,7 +387,9 @@ def encode_frame(
     if cfg.coder not in ("adaptive", *_CODER_ID):
         raise ValueError(f"unknown coder {cfg.coder!r}")
     L = cfg.block_len
-    x_h, n_h, hist_h, nb, first = build_blocks(streams, L)
+    host = _Stages(stage_ms, "cpu")
+    with host("host_build_blocks"):
+        x_h, n_h, hist_h, nb, first = build_blocks(streams, L)
     stages = [_Stages(stage_ms, d) for d in devices]
     chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     parts = []
@@ -401,24 +407,26 @@ def encode_frame(
     for stage in stages:
         stage.finish()
 
-    choice, coder, kk, bit_len, words = (_cat(col) for col in zip(*parts))
-    pred_map, ti_map = candidate_maps(cfg)
-    blocks = BlockHeaders(
-        predictor=pred_map[choice],
-        k=kk.astype(np.uint8),
-        n=n_h.astype(np.uint16),
-        bit_len=bit_len.astype(np.uint32),
-        table_idx=ti_map[choice],
-        history=hist_h,
-        coder=coder.astype(np.uint8),
-    )
-    return Frame(
-        block_len=L,
-        streams=_stream_metas(streams, stream_ids, cadences, nb, first),
-        blocks=blocks,
-        tables=cfg.lpc_tables,
-        payload_words=words,
-    )
+    with host("host_frame_assembly"):
+        choice, coder, kk, bit_len, words = (_cat(col) for col in zip(*parts))
+        pred_map, ti_map = candidate_maps(cfg)
+        blocks = BlockHeaders(
+            predictor=pred_map[choice],
+            k=kk.astype(np.uint8),
+            n=n_h.astype(np.uint16),
+            bit_len=bit_len.astype(np.uint32),
+            table_idx=ti_map[choice],
+            history=hist_h,
+            coder=coder.astype(np.uint8),
+        )
+        frame = Frame(
+            block_len=L,
+            streams=_stream_metas(streams, stream_ids, cadences, nb, first),
+            blocks=blocks,
+            tables=cfg.lpc_tables,
+            payload_words=words,
+        )
+    return frame
 
 
 def compress(
@@ -469,7 +477,9 @@ def decompress(
     other name. ``chunk_blocks`` bounds the blocks per pass (default: one
     pass on the CPU, :func:`range_blocks` on a card)."""
     xs = decode_blocks_array(frame, [device], stage_ms, chunk_blocks, backend)
-    return split_streams(xs, frame.streams)
+    with _Stages(stage_ms, "cpu")("host_split_streams"):
+        out = split_streams(xs, frame.streams)
+    return out
 
 
 def split_streams(xs: np.ndarray, streams) -> List[np.ndarray]:
@@ -607,10 +617,11 @@ def decode_blocks_array(
     every shard of a range is launched before the first host read (K4's
     flags, then the downloads), so the shards of a range overlap across
     devices."""
-    _check_block_table(frame)
     L = frame.block_len
     B = frame.blocks.num_blocks
-    off_h = frame.blocks.word_offsets(L)
+    with _Stages(stage_ms, "cpu")("host_block_table"):
+        _check_block_table(frame)
+        off_h = frame.blocks.word_offsets(L)
     tables = [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]]
     coeffs = [torch.tensor(tables, dtype=torch.int32, device=d) for d in devices]
     stages = [_Stages(stage_ms, d) for d in devices]

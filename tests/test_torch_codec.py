@@ -259,6 +259,7 @@ def test_port_imports_no_jax():
         "import dctpu_torch.kernels.select_reduce, dctpu_torch.kernels.exc_extract\n"
         "import dctpu_torch.kernels.transpose, dctpu_torch.kernels.reconstruct\n"
         "import dctpu_torch.dist, dctpu_torch.dist.multihost, dctpu_torch.utils\n"
+        "import dctpu_torch.bench\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dctpu' or m.startswith('dctpu.')]\n"
         "assert not bad, bad\n"

@@ -1,7 +1,8 @@
 """The CUDA kernels K1-K9, R, VC and CP (and the x forms of K2, K3, K5a and K6,
 the words forms of K4 and K5b, and K9's disk-order planes) against their
 plain twins, on the card, the launches of the round trips, and the sharded
-path over two shards of the card with the device guard of every launch.
+path over two shards of the card with the device guard of every launch,
+and the bench (``dctpu_torch.bench``) at 256 blocks.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -10,6 +11,7 @@ missing, without tests/conftest.py (which imports it):
 ``python -m pytest --noconftest tests/test_torch_cuda.py -q``.
 """
 
+import json
 import sys
 
 import numpy as np
@@ -18,6 +20,7 @@ import torch
 
 import chip_smoke
 from chip_smoke import scatter_blocks
+from dctpu_torch import bench
 from dctpu_torch._bits import to_i32
 from dctpu_torch.codec import api, encode, predict
 from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
@@ -586,3 +589,25 @@ def test_every_launch_runs_under_its_device(cuda, monkeypatch):
         assert len(entered) == total
         assert all(d.type == "cuda" and d.index == torch.cuda.current_device()
                    for d in entered)
+
+
+def test_bench_on_card(cuda, tmp_path):
+    """The bench (dctpu_torch.bench) at 256 blocks x 4096 on the card: exit
+    0, every coder bit-exact, and every device stage it reports above 0 ms,
+    with the peak device bytes measured."""
+    out = tmp_path / "bench.json"
+    rc = bench.main(["--streams", "4", "--samples", str(64 * 4096),
+                     "--block-len", "4096", "--repeats", "2", "--out", str(out)])
+    assert rc == 0
+    res = json.loads(out.read_text())
+    assert res["device"]["platform"] == "gpu" and res["blocks"] == 256
+    sums = {"enc_device_ms", "dec_device_ms", "enc_host_ms", "dec_host_ms"}
+    for coder in bench.CODERS:
+        r = res[coder]
+        assert r["bit_exact"] is True
+        stages = [k for k in r if k.endswith("_ms") and k not in sums
+                  and not k.startswith(("host_", "e2e_"))]
+        assert {"select_ms", "compact_ms", "reconstruct_ms", "enc_upload_ms",
+                "dec_download_ms"} <= set(stages)
+        assert all(r[k] > 0 for k in stages), {k: r[k] for k in stages}
+        assert r["enc_peak_bytes_per_byte"] > 0 and r["dec_peak_bytes_per_byte"] > 0
