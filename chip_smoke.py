@@ -36,7 +36,11 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      decode kernels
      K4 and K5b on the compact words of their blocks, laid out in a
      shuffled order between words of no block, a few RICE blocks cut
-     short, and a bad VERTICAL sync entry that must raise;
+     short, and a bad VERTICAL sync entry that must raise; and the block
+     API's two forms: K5a's codes form ("K5a-codes", the codewords of z
+     at k with the samples past n left out) and K4's slot form ("K4-slot",
+     the VERTICAL payload rows, whose bad sync entry and width above
+     max_planes must raise);
   3. drives compress -> write_frame -> read_frame -> decompress for the
      adaptive, rice and vertical coders at the bench geometry (8192 blocks
      x 4096 int32 = 128 MiB, resident on the card), each with the launch
@@ -93,11 +97,20 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      which is the reference's frame for both), each process with its own
      time limit; dryrun_multichip over every card; an EncodeJob of two
      parts whose merge equals the adaptive frame, and one RunMetrics line
-     per coder; and the host feed: build_blocks' flat path against its
-     per-stream loop over mean stream lengths 96-4096 at block lengths
-     128 and 4096 (arrays equal, host times, the path build_blocks
-     takes), and the corpus cut into 16384 streams of 2048 samples (both
-     paths equal, decompress_flat equal to the input);
+     per coder; and the host feed: build_blocks' native flat path
+     against its numpy twin and the per-stream loop over mean stream
+     lengths 96-65536 at block lengths 128 and 4096, 65536-1048576 at
+     the bench's 128 MiB, and on the bench corpus itself (arrays equal,
+     host times, the path build_blocks takes, where the loop starts to
+     win), and the corpus cut into 16384 streams of 2048 samples (both
+     paths equal, decompress_flat equal to the input); then the
+     block-batch codec on the corpus's 8192 x 4096 blocks (phase 3f):
+     encode_blocks -> decode_blocks for rice and vertical bit-exact,
+     encode_blocks' rows equal to emit_blocks', kernels.pack ->
+     kernels.unpack a round trip, and the four sharded block functions
+     over [cuda:0, cuda:0] equal to one device, each step with its
+     counters set to 0 just before it and read just after, its launches
+     exact and no plain stage;
   5. builds the C++ oracle and checks, for each coder, that its frame of the
      same corpus is byte-identical to the port's and that it decodes the
      port's frame back to the input;
@@ -334,9 +347,11 @@ def work(key, B, L, n, b, rows_words, preds):
     sub-block word for K8 (shift, compare, vote, rank) and 15 per word
     for K9 (the masked-swap network: 5 stages of 16 swaps of 6 ops per
     32 words). K3's output is its payload rows, rows_words["K3"] words,
-    whole, and K5a's rows_words["K5a"]; K4 and K5b read the count_i words
-    of each block, rows_words["K4"] and ["K5b"] in all, with its start
-    (8 bytes) and count. CP reads and writes rows_words["CP"] live words,
+    whole, and K5a's rows_words["K5a"]; K5a's codes form reads 13 bytes a
+    sample (two codeword words, a length, a validity byte); K4 and K5b
+    read the count_i words of each block, rows_words["K4"] and ["K5b"] in
+    all, with its start (8 bytes) and count, and K4's slot form the same
+    live words where they lie in the payload rows, with n. CP reads and writes rows_words["CP"] live words,
     with each block's src, coder, word count and offset, and does no
     arithmetic to speak of; its count pass reads each block's coder and
     bit length and writes its word count, offset and src, and the total."""
@@ -360,10 +375,13 @@ def work(key, B, L, n, b, rows_words, preds):
               pred_ops(n, L, preds["R"])),
         "K4": (4 * rows_words["K4"] + 16 * B + 4 * B + 4 * B * L,
                3 * 128 * int(b.sum())),
+        "K4-slot": (4 * rows_words["K4"] + 4 * B + 4 * B + 4 * B * L,
+                    3 * 128 * int(b.sum())),
         "K5a": (4 * B * L + 16 * B + 12 * B + 20 * rows_words["cands"]
                 + 4 * rows_words["K5a"] + 8 * B,
                 20 * v + pred_ops(n, L, preds["K5a"])),
         "K5a-z": (4 * B * L + 8 * B + 4 * rows_words["K5a"] + 8 * B, 20 * v),
+        "K5a-codes": (13 * B * L + 4 * rows_words["K5a"] + 8 * B, 20 * v),
         "K5b": (4 * rows_words["K5b"] + 12 * B + 8 * B + 4 * B * L, 20 * v),
         "K6": (4 * B * L + 4 * B + 4 * B * K1, rice),
         "K6-xbp": (4 * B * L + 16 * B + 4 * B + 8 * B * K1,
@@ -394,10 +412,14 @@ RECS = {
              "dctpu/kernels/vemit_pallas.py:116"),
     "K4": ("K4 vdec_words", "dctpu_torch/csrc/vdec.cu",
            "dctpu/kernels/vdec_pallas.py:76"),
+    "K4-slot": ("K4 vdec_slots (slot form, payload rows)",
+                "dctpu_torch/csrc/vdec.cu", "dctpu/kernels/vdec_pallas.py:76"),
     "K5a": ("K5a rice_pack_rows (x form)", "dctpu_torch/csrc/pack.cu",
             "dctpu/kernels/attic/pack_pallas.py:72"),
     "K5a-z": ("K5a rice_pack (z form)", "dctpu_torch/csrc/pack.cu",
               "dctpu/kernels/attic/pack_pallas.py:72"),
+    "K5a-codes": ("K5a rice_pack_codes (codes form)", "dctpu_torch/csrc/pack.cu",
+                  "dctpu/kernels/attic/pack_pallas.py:72"),
     "K5b": ("K5b rice_unpack_words", "dctpu_torch/csrc/unpack.cu",
             "dctpu/kernels/attic/unpack_pallas.py:56"),
     "K6": ("K6 rice_totals", "dctpu_torch/csrc/select.cu",
@@ -469,8 +491,11 @@ def check_kernels(dev):
         launch_compact,
     )
     from dctpu_torch.kernels.exc_extract import exc_extract, exc_extract_plain
-    from dctpu_torch.kernels.pack import (
+    from dctpu_torch.codec import rice
+    from dctpu_torch.kernels.rice_pack import (
         rice_pack,
+        rice_pack_codes,
+        rice_pack_codes_plain,
         rice_pack_plain,
         rice_pack_rows,
         rice_pack_rows_plain,
@@ -502,13 +527,16 @@ def check_kernels(dev):
         reconstruct,
         reconstruct_range_plain,
     )
-    from dctpu_torch.kernels.unpack import (
+    from dctpu_torch.kernels.rice_unpack import (
         rice_unpack_words,
         rice_unpack_words_plain,
     )
     from dctpu_torch.kernels.vdec import (
+        decode_vertical_slots,
+        decode_vertical_slots_plain,
         decode_vertical_words,
         decode_vertical_words_plain,
+        launch_vdec_slots,
         launch_vdec_words,
     )
     from dctpu_torch.kernels.vemit import (
@@ -569,6 +597,12 @@ def check_kernels(dev):
         chosen = torch.tensor([p for p, _ in cands], device=dev)[choice.long()]
         preds = {"K3": chosen, "K5a": chosen, "R": pred_r}
         payload, bit_len = rice_pack_plain(z, k, n, L)
+        # K5a's codes form packs the codewords of z at k, the samples past
+        # n left out by the validity mask
+        code, length = rice.codewords(z, k.long()[:, None])
+        codes = (to_i32(code), to_i32(code >> 32), length.to(torch.int32),
+                 torch.arange(L, device=dev)[None, :] < n[:, None])
+        del code, length
         # K5b and K4 read their blocks in place from the frame's compact
         # words, here shuffled between words of no block; three RICE
         # blocks are cut short (one below its sync table)
@@ -613,6 +647,10 @@ def check_kernels(dev):
                     lambda: rice_pack_rows_plain(x, hist_r, n, choice, k31, cfg)),
             "K5a-z": (lambda: rice_pack(z, k, n, L),
                       lambda: rice_pack_plain(z, k, n, L)),
+            "K5a-codes": (lambda: rice_pack_codes(*codes, L),
+                          lambda: rice_pack_codes_plain(*codes, L)),
+            "K4-slot": (lambda: (decode_vertical_slots(rows, n, L),),
+                        lambda: (decode_vertical_slots_plain(rows, n, L),)),
             "K5b": (lambda: (rice_unpack_words(r_words, r_start, r_count, k,
                                                n, L),),
                     lambda: (rice_unpack_words_plain(r_words, r_start,
@@ -659,6 +697,8 @@ def check_kernels(dev):
                 fail(f"{key} differs from its twin at {B}x{L}")
             if key == "K4":
                 bad_vertical_check(v_words, v_start, v_count, n, L)
+            if key == "K4-slot":
+                bad_slot_check(rows, n, L)
             if key == "CP":
                 bad_compact_check(cp_args)
             if (B, L) == (BENCH_BLOCKS, BENCH_LEN):
@@ -676,6 +716,9 @@ def check_kernels(dev):
                 if key == "K4":  # the kernel; the wrapper adds a host read
                     r["wrapper_ms"] = time_ms(kern, 10)
                     kern = lambda: launch_vdec_words(v_words, v_start, v_count, n, L)  # noqa: E731
+                if key == "K4-slot":  # likewise
+                    r["wrapper_ms"] = time_ms(kern, 10)
+                    kern = lambda: launch_vdec_slots(rows, n, L)  # noqa: E731
                 if key == "CP":  # the copy; the wrapper adds the count
                     # pass and two host reads
                     r["wrapper_ms"] = time_ms(kern, 10)
@@ -689,6 +732,7 @@ def check_kernels(dev):
                     "K4": int(v_count.sum()),
                     "K5a": int(payload.numel()),
                     "K5a-z": int(payload.numel()),
+                    "K5a-codes": int(payload.numel()),
                     "K5b": int(r_count.sum()),
                     "K3": int(rows.numel()),
                     "cands": len(cands),
@@ -705,7 +749,7 @@ def check_kernels(dev):
         del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload
         del r_words, r_start, r_count, v_words, v_start, v_count
         del zs, b_exc, groups, emitted, choice, pred_r, tidx, hist_r, zr, preds
-        del z_first, z_second, src, vbits, cp_args
+        del z_first, z_second, src, vbits, cp_args, codes
         torch.cuda.empty_cache()
     return recs
 
@@ -726,8 +770,8 @@ def group_times(dev, frames, recs, streams) -> None:
     from dctpu_torch.config import CodecConfig
     from dctpu_torch.constants import LPC
     from dctpu_torch.format import read_frame
-    from dctpu_torch.kernels.pack import padded_words, rice_pack_rows
-    from dctpu_torch.kernels.unpack import rice_unpack_words
+    from dctpu_torch.kernels.rice_pack import padded_words, rice_pack_rows
+    from dctpu_torch.kernels.rice_unpack import rice_unpack_words
     from dctpu_torch.kernels.vdec import launch_vdec_words
 
     blocks = None
@@ -926,6 +970,26 @@ def bad_vertical_check(words, start, count, n, L) -> None:
         fail(f"K4 decoded a block with a bad sync entry at {L}")
 
 
+def bad_slot_check(rows, n, L) -> None:
+    """K4's slot form on the card raises the twin's ValueError for a row
+    whose sync entry has a width above 32, and for one wider than
+    max_planes."""
+    from dctpu_torch.kernels.vdec import decode_vertical_slots
+
+    for entry, max_planes, msg in ((40, 32, "sync table does not match"),
+                                   (9, 8, "max_planes")):
+        bad = rows.clone()
+        bad[3, 0] = (bad[3, 0] & -(1 << 16)) | entry  # sub 0: b = entry
+        try:
+            decode_vertical_slots(bad, n, L, max_planes)
+        except ValueError as e:
+            if msg not in str(e):
+                fail(f"K4's slot form raised another ValueError: {e}")
+        else:
+            fail(f"K4's slot form decoded a row with sub 0 of width {entry} "
+                 f"at max_planes {max_planes}, {L}")
+
+
 def bad_compact_check(args) -> None:
     """CP on the card raises the twin's ValueError for a VERTICAL block
     whose sync entry has a width above 32."""
@@ -948,13 +1012,13 @@ def counters():
     from dctpu_torch.kernels import (
         compact,
         exc_extract,
-        pack,
         reconstruct,
+        rice_pack,
         rice_totals,
+        rice_unpack,
         select_bp,
         select_reduce,
         transpose,
-        unpack,
         vdec,
         vemit,
         vertical_cost,
@@ -967,9 +1031,11 @@ def counters():
         "K3": (vemit.vertical_emit_rows,),
         "K3-z": (vemit.vertical_emit_rows_z,),
         "K4": (vdec.decode_vertical_words,),
-        "K5a": (pack.rice_pack_rows,),
-        "K5a-z": (pack.rice_pack,),
-        "K5b": (unpack.rice_unpack_words,),
+        "K4-slot": (vdec.decode_vertical_slots,),
+        "K5a": (rice_pack.rice_pack_rows,),
+        "K5a-z": (rice_pack.rice_pack,),
+        "K5a-codes": (rice_pack.rice_pack_codes,),
+        "K5b": (rice_unpack.rice_unpack_words,),
         "K6": (rice_totals.rice_totals, rice_totals.rice_totals_xbp,
                rice_totals.rice_totals_lpc),
         "K6-xbp": (rice_totals.rice_totals_xbp,),
@@ -1008,12 +1074,15 @@ NEEDS = {
     ("vertical", "pallas"): ("K4", "K8", "K9", "R", "VC-xbp", "VC-lpc", "CP",
                              "CP-count"),
 }
+# (the block API's forms, K4-slot and K5a-codes, serve no frame path)
 NEVER = {
-    ("adaptive", None): ("K3-z", "K5a-z", "K9", "VC-xbp", "VC-lpc"),
-    ("rice", None): ("K5a-z", "VC-xbp", "VC-lpc"),
-    ("vertical", None): ("K3-z", "K5a-z", "K9"),
-    ("adaptive", "pallas"): ("K3", "K3-z", "K5a-z", "VC-xbp", "VC-lpc"),
-    ("vertical", "pallas"): ("K3", "K3-z", "K5a-z"),
+    ("adaptive", None): ("K3-z", "K5a-z", "K9", "VC-xbp", "VC-lpc", "K4-slot",
+                         "K5a-codes"),
+    ("rice", None): ("K5a-z", "VC-xbp", "VC-lpc", "K4-slot", "K5a-codes"),
+    ("vertical", None): ("K3-z", "K5a-z", "K9", "K4-slot", "K5a-codes"),
+    ("adaptive", "pallas"): ("K3", "K3-z", "K5a-z", "VC-xbp", "VC-lpc",
+                             "K4-slot", "K5a-codes"),
+    ("vertical", "pallas"): ("K3", "K3-z", "K5a-z", "K4-slot", "K5a-codes"),
 }
 
 
@@ -1025,24 +1094,38 @@ def plain_calls():
     group's on the staged backends only), the staging of the decode's
     VERTICAL and RICE rows, the VERTICAL selection cost (VC's twin too),
     and the compaction's segment copies (ragged.segment_index and
-    copy_segments, and torch.repeat_interleave); and the flips in the
-    staged VERTICAL emission, which K9 no longer needs."""
+    copy_segments, and torch.repeat_interleave); the flips in the staged
+    VERTICAL emission, which K9 no longer needs; and the twins of the
+    block API's kernels (K4's slot form, K5a's codes form, R)."""
     import torch
 
     from dctpu_torch.codec import encode, predict
-    from dctpu_torch.kernels import ragged, vemit, vertical, vertical_cost
+    from dctpu_torch.kernels import (
+        ragged,
+        reconstruct,
+        rice_pack,
+        vdec,
+        vemit,
+        vertical,
+        vertical_cost,
+    )
 
     counts = {"reconstruct_lpc": 0, "assemble_rows": 0, "chosen_residuals": 0,
               "stage_vertical": 0, "pad_payload": 0,
               "vertical_selection_cost": 0, "segment_index": 0,
-              "copy_segments": 0, "repeat_interleave": 0, "staged_flip": 0}
+              "copy_segments": 0, "repeat_interleave": 0, "staged_flip": 0,
+              "decode_vertical_slots_plain": 0, "rice_pack_codes_plain": 0,
+              "reconstruct_plain": 0}
     patched = [(predict, "reconstruct_lpc"), (encode, "assemble_rows"),
                (vemit, "assemble_rows"), (predict, "chosen_residuals"),
                (ragged, "stage_vertical"), (ragged, "pad_payload"),
                (vertical, "vertical_selection_cost"),
                (vertical_cost, "vertical_selection_cost"),
                (ragged, "segment_index"), (ragged, "copy_segments"),
-               (torch, "repeat_interleave")]
+               (torch, "repeat_interleave"),
+               (vdec, "decode_vertical_slots_plain"),
+               (rice_pack, "rice_pack_codes_plain"),
+               (reconstruct, "reconstruct_plain")]
     saved = [getattr(mod, name) for mod, name in patched]
 
     def counting(name, fn):
@@ -1169,7 +1252,9 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
                   "chosen_residuals": staged_vert, "stage_vertical": 0,
                   "pad_payload": 0, "vertical_selection_cost": 0,
                   "segment_index": 0, "copy_segments": 0,
-                  "repeat_interleave": 0, "staged_flip": 0}
+                  "repeat_interleave": 0, "staged_flip": 0,
+                  "decode_vertical_slots_plain": 0,
+                  "rice_pack_codes_plain": 0, "reconstruct_plain": 0}
     if (launches["R"], launches["CP"], launches["CP-count"], launches["K3"],
             plain) != (1, 1, 1, 0 if staged else int(hist[1] > 0), want_plain):
         fail(f"R launched {launches['R']} times, CP {launches['CP']} and its "
@@ -1269,7 +1354,7 @@ def zform_emit_check(dev, streams, coder) -> dict:
     from dctpu_torch.codec import encode, predict, rice
     from dctpu_torch.codec.api import build_blocks
     from dctpu_torch.config import CodecConfig
-    from dctpu_torch.kernels.pack import rice_pack
+    from dctpu_torch.kernels.rice_pack import rice_pack
 
     cfg = CodecConfig(coder=coder)
     L = cfg.block_len
@@ -1304,6 +1389,138 @@ def zform_emit_check(dev, streams, coder) -> dict:
         fail(f"{name} launched {key} {launches[key]} times (want 1), "
              f"{x_key} {launches[x_key]} (want 0)")
     return launches
+
+
+def block_step(name, fn, want, total) -> object:
+    """One step of the block API phase: fn() with the counters set to 0
+    just before and read just after, under plain_calls; fails unless the
+    launches are exactly want (all others 0) and no plain stage ran. Adds
+    the launches into total; returns fn's result."""
+    import torch
+
+    torch.cuda.synchronize()
+    reset_counters()
+    with plain_calls() as plain:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+    launches = read_counters()
+    got = {k: v for k, v in launches.items() if v}
+    if got != want or any(plain.values()):
+        fail(f"block API step {name}: launches {got} (want {want}), plain "
+             f"stage calls {plain}")
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+    print(f"  block API {name}: {ms:.2f} ms host clock (with a synchronize), "
+          f"launches {json.dumps(got)}", flush=True)
+    return out
+
+
+def block_api_check(dev, streams) -> dict:
+    """Phase 3f: the block-batch codec on the 128 MiB corpus's blocks
+    (8192 x 4096) on the card: encode_blocks -> decode_blocks for rice and
+    vertical bit-exact, encode_blocks' rows and bit lengths equal to
+    select_blocks + emit_blocks', pack -> unpack a round trip, and the four
+    sharded block functions over [dev, dev] equal to one device; each step
+    with exact launches and no plain stage. Returns the launches of all its
+    steps (the path of K5a's codes form and K4's slot form)."""
+    import torch
+
+    from dctpu_torch import kernels
+    from dctpu_torch._bits import MASK32, to_i32
+    from dctpu_torch.codec import decode, encode, rice
+    from dctpu_torch.codec.api import build_blocks
+    from dctpu_torch.config import CodecConfig
+    from dctpu_torch.dist import decode_blocks_sharded, encode_blocks_sharded
+    from dctpu_torch.dist.sharded import adaptive_select_sharded, emit_blocks_sharded
+
+    L = BENCH_LEN
+    x, n, hist = (torch.from_numpy(a).to(dev) for a in build_blocks(streams, L)[:3])
+    valid = torch.arange(L, device=dev)[None, :] < n[:, None]
+    want_x = torch.where(valid, x, 0)
+    mesh = [dev, dev]
+    total = {}
+    n_lpc = len(CodecConfig().candidates()) - 2
+
+    def same(a, b, what):
+        if not all(torch.equal(u, v) for u, v in zip(a, b)):
+            fail(f"block API: {what}")
+
+    for coder in ("rice", "vertical"):
+        cfg = CodecConfig(coder=coder)
+        tables = [t.coeffs for t in cfg.lpc_tables]
+        if coder == "rice":
+            sel = {"K6": 1 + n_lpc, "K6-xbp": 1, "K6-lpc": n_lpc, "K5a": 1}
+            dec = {"K5b": 1, "R": 1}
+        else:
+            sel = {"VC-xbp": 1, "VC-lpc": n_lpc, "K3": 1}
+            dec = {"K4-slot": 1, "R": 1}
+        enc = block_step(f"{coder} encode_blocks",
+                         lambda: encode.encode_blocks(x, n, hist, cfg), sel, total)  # noqa: B023
+        choice, k = encode.select_blocks(x, n, hist, cfg)
+        payload, bit_len = encode.emit_blocks(x, n, hist, choice, k, cfg, coder)
+        same((enc.payload, enc.bit_len), (payload, bit_len.to(torch.int32)),
+             f"{coder} encode_blocks' rows differ from emit_blocks'")
+        del payload, bit_len
+        args = (enc.k, n, enc.predictor, enc.table_idx, hist, tables)
+        out = block_step(f"{coder} decode_blocks", lambda: decode.decode_blocks(  # noqa: B023
+            enc.payload, *args, L, True, coder=coder), dec, total)  # noqa: B023
+        same((out,), (want_x,), f"{coder} decode_blocks is not bit-exact")
+        enc2 = block_step(
+            f"{coder} encode_blocks_sharded over [{dev}, {dev}]",
+            lambda: encode_blocks_sharded(x, n, hist, cfg, mesh),  # noqa: B023
+            {key: 2 * v for key, v in sel.items()}, total)
+        same(enc2, enc, f"{coder} encode_blocks_sharded differs from one device")
+        out2 = block_step(
+            f"{coder} decode_blocks_sharded over [{dev}, {dev}]",
+            lambda: decode_blocks_sharded(enc.payload, *args, L, True, mesh,  # noqa: B023
+                                          coder=coder),  # noqa: B023
+            {key: 2 * v for key, v in dec.items()}, total)
+        same((out2,), (out,), f"{coder} decode_blocks_sharded differs")
+        print(f"block API {coder}: {int(x.shape[0])}x{L}, encode_blocks -> "
+              "decode_blocks bit-exact, rows equal to emit_blocks', sharded "
+              "equal to one device", flush=True)
+        del enc, enc2, out, out2
+
+    cfg = CodecConfig(coder="adaptive")
+    sel = encode.adaptive_select(x, n, hist, cfg)
+    got = block_step(
+        f"adaptive_select_sharded over [{dev}, {dev}]",
+        lambda: adaptive_select_sharded(x, n, hist, cfg, mesh),
+        {"K1": 2, "K2": 2 * n_lpc, "K2-lpc": 2 * n_lpc}, total)
+    same(got, sel, "adaptive_select_sharded differs from adaptive_select")
+    choice, coder_of, k = sel
+    for gid, coder in ((0, "rice"), (1, "vertical")):
+        idx = torch.nonzero(coder_of == gid).squeeze(1)
+        g = [t[idx] for t in (x, n, hist, choice, k)]
+        want = encode.emit_blocks_body(*g, cfg, coder)
+        got = block_step(
+            f"adaptive {coder} group's emit_blocks_sharded over [{dev}, {dev}]",
+            lambda: emit_blocks_sharded(*g, cfg, coder, mesh),  # noqa: B023
+            {"K5a" if gid == 0 else "K3": 2}, total)
+        same(got, want, f"emit_blocks_sharded differs for the {coder} group")
+        del g, want, got
+
+    z = rice.zigzag(x)
+    k31 = (torch.arange(x.shape[0], device=dev) % 31).to(torch.int32)
+    code, length = rice.codewords(z, k31.long()[:, None])
+    codes = (to_i32(code & MASK32), to_i32(code >> 32), length.to(torch.int32),
+             valid)
+    del code, length
+    packed = block_step("kernels.pack", lambda: kernels.pack(*codes, L),
+                        {"K5a-codes": 1}, total)
+    rows = torch.cat([packed[0], torch.zeros((x.shape[0], 2), dtype=torch.int32,
+                                             device=dev)], 1)
+    del packed
+    got = block_step("kernels.unpack", lambda: kernels.unpack(rows, k31, n, L),
+                     {"K5b": 1}, total)
+    same((got,), (torch.where(valid, z, 0),), "pack -> unpack is not a round trip")
+    print(f"block API: kernels.pack -> kernels.unpack a round trip, "
+          f"{int(x.shape[0])}x{L} at k = block % 31", flush=True)
+    del x, n, hist, valid, want_x, z, codes, rows, got
+    torch.cuda.empty_cache()
+    return total
 
 
 def oracle_check(streams, ids, cads, frames) -> None:
@@ -1402,7 +1619,8 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     cover these block ranges, one pass per range: every kernel of the
     coder's default path once per range and coder group (K2, K6 and
     VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R, CP and
-    CP's count pass once per range, and none of the z forms, K7, K8 or K9."""
+    CP's count pass once per range, and none of the z forms, the block
+    API's forms (K4-slot, K5a-codes), K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
@@ -1411,7 +1629,8 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     return {
         "K1": r * adaptive, "K2": r * n_lpc * adaptive,
         "K2-lpc": r * n_lpc * adaptive, "K3": vert, "K3-z": 0, "K4": vert,
-        "K5a": rice, "K5a-z": 0, "K5b": rice, "K6": r * (1 + n_lpc) * rice_sel,
+        "K4-slot": 0, "K5a": rice, "K5a-z": 0, "K5a-codes": 0, "K5b": rice,
+        "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
         "K8": 0, "K9": 0, "R": r, "VC-xbp": r * vert_sel,
         "VC-lpc": r * n_lpc * vert_sel, "CP": r, "CP-count": r,
@@ -1645,49 +1864,88 @@ def aux_check(dev, streams, ids, cads, frames, enc_s) -> None:
         print(f"RunMetrics {coder}: {m.to_json()}", flush=True)
 
 
-# (block length, mean stream lengths) of the host feed sweep: the bench
-# geometry, and the reference's host feed bench (bench/host_feed.py,
-# 1 M streams of mean 96 at L=128) at a smaller stream count
-FEED_SWEEP = ((BENCH_LEN, (96, 512, 1024, 2048, 4096)), (128, (96, 512, 1024, 2048)))
+# (block length, samples in all, mean stream lengths) of the host feed
+# sweep: 4 Mi samples at the bench's block length and at the reference's
+# host feed bench's (bench/host_feed.py, 1 M streams of mean 96 at L=128,
+# here fewer), and the bench's 32 Mi samples for long streams;
+# host_feed_sweep adds the bench corpus itself (16 streams of 2 Mi samples)
+FEED_SWEEP = (
+    (BENCH_LEN, 1 << 22, (96, 512, 1024, 2048, 4096, 16384, 65536)),
+    (BENCH_LEN, BENCH_BLOCKS * BENCH_LEN, (65536, 262144, 1048576)),
+    (128, 1 << 22, (96, 512, 1024, 2048, 4096)),
+)
+FEED_PATHS = ("native", "numpy", "loop")
 
 
-def host_feed_sweep(total: int = 1 << 22, reps: int = 2) -> None:
-    """build_blocks' two host paths on about ``total`` samples of streams
-    of mean length m (lengths uniform in 1..2m-1), for each (L, m) of
-    FEED_SWEEP: arrays equal, the best of ``reps`` host times of each path
-    on this machine's CPU, and the path build_blocks takes. Needs no
-    card."""
+def feed_times(streams, L, reps):
+    """The best of reps host times (ms) of build_blocks' flat path (the
+    native feed; the concatenation included), the flat path's numpy twin
+    (build_blocks_flat_plain, the flat path up to this PR), and the
+    per-stream loop; fails unless their arrays are equal."""
+    import numpy as np
+
+    from dctpu_torch.codec import api
+
+    lens = np.array([s.size for s in streams], np.int64)
+    fns = {
+        "native": lambda: api.build_blocks_flat(np.concatenate(streams), lens, L),
+        "numpy": lambda: api.build_blocks_flat_plain(np.concatenate(streams),
+                                                     lens, L),
+        "loop": lambda: api.build_blocks_loop(streams, L),
+    }
+    ms, out = {}, {}
+    for name in FEED_PATHS:
+        ms[name] = float("inf")
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out[name] = fns[name]()
+            ms[name] = min(ms[name], 1e3 * (time.perf_counter() - t0))
+        if name != "native":
+            if not all(np.array_equal(a, b)
+                       for a, b in zip(out.pop(name), out["native"])):
+                fail(f"build_blocks' {name} path differs from the native flat "
+                     f"path at L={L}")
+    return ms
+
+
+def host_feed_sweep(bench_streams, reps: int = 3) -> None:
+    """build_blocks' host paths (feed_times) on about ``total`` samples of
+    streams of mean length m (lengths uniform in 1..2m-1), for each
+    (L, total, m) of FEED_SWEEP, and on the bench corpus: the best of
+    ``reps`` host times of each on this machine's CPU, and the path
+    build_blocks takes; then, per block length and volume, the least mean
+    at which the loop beats the native flat path. Needs no card."""
     import numpy as np
 
     from dctpu_torch.codec import api
 
     rng = np.random.default_rng(11)
-    for L, means in FEED_SWEEP:
+    cases = []
+    for L, total, means in FEED_SWEEP:
         for mean in means:
             lens = rng.integers(1, 2 * mean, size=max(total // mean, 1))
             flat = rng.integers(-(2**15), 2**15, size=int(lens.sum()),
                                 dtype=np.int32)
-            streams = np.split(flat, np.cumsum(lens)[:-1])
-            ms, out = {}, {}
-            for name, fn in (
-                ("flat", lambda: api.build_blocks_flat(
-                    np.concatenate(streams), lens, L)),
-                ("loop", lambda: api.build_blocks_loop(streams, L)),
-            ):
-                ms[name] = float("inf")
-                for _ in range(reps):
-                    t0 = time.perf_counter()
-                    out[name] = fn()
-                    ms[name] = min(ms[name], 1e3 * (time.perf_counter() - t0))
-            if not all(np.array_equal(a, b) for a, b in zip(out["flat"], out["loop"])):
-                fail(f"build_blocks' flat path differs from the loop at L={L}, "
-                     f"mean {mean}")
-            takes = "flat" if api.takes_flat_path(lens) else "loop"
-            print(f"host feed L={L}, {lens.size} streams of mean {mean} samples:"
-                  f" flat path {ms['flat']:.1f} ms (with the concatenation), "
-                  f"loop {ms['loop']:.1f} ms (best of {reps}, host times of the "
-                  f"card machine's CPU), arrays equal; build_blocks takes the "
-                  f"{takes} path", flush=True)
+            cases.append((L, total, mean, np.split(flat, np.cumsum(lens)[:-1])))
+    mean = sum(s.size for s in bench_streams) // len(bench_streams)
+    cases.append((BENCH_LEN, BENCH_BLOCKS * BENCH_LEN, mean, list(bench_streams)))
+    crossover = {}
+    for L, total, mean, streams in cases:
+        ms = feed_times(streams, L, reps)
+        lens = np.array([s.size for s in streams], np.int64)
+        takes = "flat" if api.takes_flat_path(lens) else "loop"
+        if ms["loop"] < ms["native"]:
+            crossover.setdefault(f"L={L}, {total} samples", mean)
+        print(f"host feed L={L}, {len(streams)} streams of mean {mean} "
+              f"samples: native flat path {ms['native']:.2f} ms, numpy flat "
+              f"path {ms['numpy']:.2f} ms (both with the concatenation), loop "
+              f"{ms['loop']:.2f} ms (best of {reps}, host times of the card "
+              f"machine's CPU), arrays equal; build_blocks takes the {takes} "
+              f"path", flush=True)
+    print("host feed sweep: the least mean stream length at which the loop "
+          "beats the native flat path, per block length and volume (none: "
+          f"the flat path wins at every mean swept): {json.dumps(crossover)}",
+          flush=True)
 
 
 def flat_feed_check(dev, streams) -> None:
@@ -1701,7 +1959,7 @@ def flat_feed_check(dev, streams) -> None:
     from dctpu_torch.config import CodecConfig
     from dctpu_torch.format import read_frame, write_frame
 
-    host_feed_sweep()
+    host_feed_sweep(streams)
     flat = np.concatenate(streams)
     short = np.split(flat, flat.size // 2048)
     lens = np.full(len(short), 2048, np.int64)
@@ -1909,17 +2167,21 @@ def main() -> int:
     by_path.update(multihost_check(frames, CORPUS))
     aux_check(dev, streams, ids, cads, frames, enc_s)
     flat_feed_check(dev, streams)
+    print("block API (8192 x 4096):", flush=True)
+    by_path["block-api"] = block_api_check(dev, streams)
     # the count of the path each kernel was ported for: K1-K4 and R the
     # adaptive path, K5a, K5b and K6's forms the rice path, VC's forms the
     # vertical path, K7 the "reduce"
     # selection, K3's and K5a's z forms the z-form emissions, K8 and K9 the
-    # adaptive path under backend="pallas"
+    # adaptive path under backend="pallas", K5a's codes form and K4's slot
+    # form the block API (phase 3f)
     home = {"K5a": "rice", "K5b": "rice", "K6": "rice", "K6-xbp": "rice",
             "K6-lpc": "rice", "K3-z": "vertical/z-form-emit",
             "K5a-z": "rice/z-form-emit",
             "K7": "adaptive/reduce-select", "K8": "adaptive/pallas",
             "K9": "adaptive/pallas", "VC-xbp": "vertical",
-            "VC-lpc": "vertical"}
+            "VC-lpc": "vertical", "K5a-codes": "block-api",
+            "K4-slot": "block-api"}
     for key, r in recs.items():
         r["launches"] = by_path[home.get(key, "adaptive")][key]
         r["launches_by_path"] = {p: c[key] for p, c in by_path.items()}

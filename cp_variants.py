@@ -201,13 +201,13 @@ def shapes(dev):
     from dctpu_torch.codec import api
     from dctpu_torch.config import CodecConfig
     from dctpu_torch.corpus import synth_corpus
-    from dctpu_torch.kernels import pack, vemit
+    from dctpu_torch.kernels import rice_pack, vemit
 
     B, L = cs.BENCH_BLOCKS, cs.BENCH_LEN
     si = cs.SHAPES.index((B, L))
     _, z, _, n, k = (torch.from_numpy(a).to(dev)
                      for a in cs.kernel_inputs(B, L, 100 + si))
-    rice = pack.rice_pack(z, k, n, L)
+    rice = rice_pack.rice_pack(z, k, n, L)
     vert = vemit.vertical_emit_rows_z(z, n, L)
     yield "mixed groups", (*cs.compact_groups(*rice, *vert, 500 + si), L)
     del z, n, k, rice, vert

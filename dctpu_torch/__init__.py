@@ -10,14 +10,19 @@ Layers, mirroring ``dctpu``:
   codec/   — predictors, Rice math, block encode/decode, host API, and
              corpus-fit LPC tables (``select``, copy)
   kernels/ — CUDA kernels K1-K9, R, VC and CP (csrc/) with plain torch
-             twins, and the plain torch VERTICAL region math and ragged
-             copies
-  csrc/    — the CUDA C++ sources, built for sm_90a at first use
-  dist/    — data parallelism over blocks on a list of devices, several
-             processes over torch.distributed (gloo), the multi-device dry run
+             twins, the plain torch VERTICAL region math and ragged
+             copies, and the reference's kernel-level ``pack`` / ``unpack``
+  csrc/    — the CUDA C++ sources, built for sm_90a at first use, and the
+             C++ host feed (csrc/host/), built with g++ at first use
+  native   — the host feed's binding (``native.build_blocks``)
+  dist/    — data parallelism over blocks on a list of devices (the
+             sharded frame paths and the four sharded block functions),
+             several processes over torch.distributed (gloo), the
+             multi-device dry run
   utils/   — resumable encode jobs (``EncodeJob``) and run metrics
-  cli/     — encode / decode / verify, ``--sharded``
+  cli/     — encode / decode / verify / bench, ``--sharded``
              (``python -m dctpu_torch.cli.main``)
+  bench    — the benchmark of the three coders on the card
 
 The package exports the reference's format constants (``BLOCK_LEN_DEFAULT``,
 ``DELTA``, ...) and ``dctpu_torch.codec`` its ``compress`` and
@@ -26,10 +31,15 @@ The package exports the reference's format constants (``BLOCK_LEN_DEFAULT``,
 All three coders are ported: ``CodecConfig(coder="rice")`` (the default),
 ``"vertical"`` and ``"adaptive"`` (the CLI default), through
 ``dctpu_torch.codec.api.compress`` and ``decompress``, with the
-reference's encode and decode ``backend`` names and ``chunk_blocks``.
-Not yet ported: the CLI's ``bench`` verb, which waits for the port's
-benchmark. The compile cache and the TPU timing helpers of
-``dctpu/utils`` are JAX-only and have no counterpart.
+reference's encode and decode ``backend`` names and ``chunk_blocks``; so
+is the block-batch codec on device tensors, without framing
+(``codec.encode.encode_blocks`` -> ``EncodedBlocks``,
+``codec.decode.decode_blocks``, their ``*_body`` names and the sharded
+forms in ``dist``), the kernel-level ``kernels.pack`` / ``unpack``
+(``DCTPU_KERNEL_BACKEND``), and the native host feed. Not ported: the
+scalar codec and ``oracle/`` (what the port is checked against), the
+compile cache and the TPU timing helpers of ``dctpu/utils`` (JAX only),
+and the ``bench/*`` TPU probes.
 """
 
 from dctpu_torch.constants import (  # noqa: F401

@@ -37,17 +37,24 @@ from typing import List, Sequence, Tuple
 import numpy as np
 import torch
 
+from dctpu_torch import native
 from dctpu_torch.codec.decode import decode_z, reconstruct
-from dctpu_torch.codec.encode import adaptive_select, emit_blocks, select_blocks
+from dctpu_torch.codec.encode import (
+    adaptive_select,
+    candidate_ids,
+    emit_blocks,
+    select_blocks,
+)
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import CODER_RICE, CODER_VERTICAL, HISTORY_LEN, LPC
 from dctpu_torch.format.frame import BlockHeaders, Frame, StreamDir, plan_blocks
+from dctpu_torch.kernels.api import UNPACK_BACKENDS
 from dctpu_torch.kernels.compact import (
     CODER_GROUPS,
     compact_range_flagged,
     host_words,
 )
-from dctpu_torch.kernels.pack import padded_words
+from dctpu_torch.kernels.rice_pack import padded_words
 from dctpu_torch.kernels.vdec import raise_if_bad
 
 DEFAULT_CHUNK_BLOCKS = 2048  # the reference's, and the sharded paths' default
@@ -60,12 +67,15 @@ DEFAULT_CHUNK_BLOCKS = 2048  # the reference's, and the sharded paths' default
 DEVICE_BYTES_PER_SAMPLE = 160
 DEVICE_SHARE = 4
 # build_blocks takes the flat path below this mean stream length (samples):
-# the crossover of its two numpy paths on the CPU of an H100 host
-# (chip_smoke.py's host feed sweep, PERF.md §6)
-_FLAT_PATH_MAX_MEAN_LEN = 1536
+# chip_smoke.py's host feed sweep on an H100 host's 8 CPUs (PERF.md §6)
+# puts the crossover of the native flat path and the per-stream loop
+# between 65536 (flat faster) and 262144 (loop faster) at 128 MiB, and
+# above 65536 at 16 MiB; the bench's 16 streams of 2 Mi samples stay on
+# the loop
+_FLAT_PATH_MAX_MEAN_LEN = 131072
 # the reference decoder's backend names (dctpu/codec/api.py
 # _decode_blocks_array, dctpu/kernels/api.py unpack)
-DECODE_BACKENDS = (None, "auto", "scan", "scan_xla", "xla", "pallas")
+DECODE_BACKENDS = (None, *UNPACK_BACKENDS)
 _CODERS = CODER_GROUPS  # in the order CP stacks their payload rows
 _CODER_ID = {name: gid for gid, name in _CODERS}
 
@@ -78,13 +88,12 @@ def build_blocks(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Pack streams into [B, L] padded blocks + lengths + histories (numpy).
 
-    Two host paths that give the same arrays: :func:`build_blocks_flat` on
-    one concatenation for streams shorter than ``_FLAT_PATH_MAX_MEAN_LEN``
-    samples on average, where per-stream Python work dominates, and
-    :func:`build_blocks_loop` for longer ones, where the flat path's index
-    arrays cost more than the per-stream copies. The reference picks the
-    flat path from 256 streams on, tuned with its native C helper, which
-    is a host tuning and is not ported."""
+    Two host paths that give the same arrays: :func:`build_blocks_flat`
+    (the native host feed, C++ on host threads) on one concatenation for
+    streams shorter than ``_FLAT_PATH_MAX_MEAN_LEN`` samples on average,
+    and :func:`build_blocks_loop` for longer ones, where the concatenation
+    costs more than the per-stream copies save. The reference picks the
+    flat path from 256 streams on, by its own host's timings."""
     lens = np.fromiter((np.asarray(s).size for s in streams), np.int64, len(streams))
     if takes_flat_path(lens):
         flat = np.concatenate([np.asarray(s, np.int32).ravel() for s in streams])
@@ -126,30 +135,48 @@ def build_blocks_loop(
     return x, n, hist, nb, first
 
 
+def _flat_plan(flat, lens, block_len):
+    """(flat int32, lens int64, nb, first, sstart [S + 1] int64 stream
+    offsets) of a flat feed; ValueError if lens do not sum to flat's size."""
+    flat = np.ascontiguousarray(flat, dtype=np.int32)
+    lens = np.asarray(lens, dtype=np.int64)
+    nb, first = plan_blocks(lens, block_len)
+    sstart = np.zeros(lens.size + 1, np.int64)
+    np.cumsum(lens, out=sstart[1:])
+    if flat.size != sstart[-1]:
+        raise ValueError(f"{flat.size} samples for stream lengths summing to {sstart[-1]}")
+    return flat, lens, nb, first, sstart
+
+
 def build_blocks_flat(
     flat: np.ndarray, lens: np.ndarray, block_len: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """:func:`build_blocks` over concatenated samples, with no per-stream
-    Python work: the block -> stream map by one repeat, the samples moved
-    by one scatter per slice of streams, the histories by HISTORY_LEN
-    whole-column gathers.
+    """:func:`build_blocks` over concatenated samples, by the native host
+    feed (``dctpu_torch.native``: C++ on host threads over the streams, one
+    copy per block). Raises if the library does not build.
 
     flat: all streams' samples concatenated (int32); lens: per-stream
     sample counts."""
+    flat, lens, nb, first, sstart = _flat_plan(flat, lens, block_len)
+    x, n, hist = native.build_blocks(flat, sstart, first, block_len, int(nb.sum()))
+    return x, n, hist, nb, first
+
+
+def build_blocks_flat_plain(
+    flat: np.ndarray, lens: np.ndarray, block_len: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`build_blocks_flat` in numpy, the native feed's plain twin
+    (for the tests), with no per-stream Python work: the block -> stream
+    map by one repeat, the samples moved by one scatter per slice of
+    streams, the histories by HISTORY_LEN whole-column gathers."""
     L = block_len
-    flat = np.ascontiguousarray(flat, dtype=np.int32)
-    lens = np.asarray(lens, dtype=np.int64)
-    nb, first = plan_blocks(lens, L)
+    flat, lens, nb, first, sstart = _flat_plan(flat, lens, L)
     B = int(nb.sum())
     x = np.zeros((B, L), dtype=np.int32)
     n = np.zeros(B, dtype=np.int32)
     hist = np.zeros((B, HISTORY_LEN), dtype=np.int32)
     if B == 0:
         return x, n, hist, nb, first
-    sstart = np.zeros(lens.size + 1, np.int64)
-    np.cumsum(lens, out=sstart[1:])
-    if flat.size != sstart[-1]:
-        raise ValueError(f"{flat.size} samples for stream lengths summing to {sstart[-1]}")
 
     sid = np.repeat(np.arange(lens.size, dtype=np.int64), nb)   # [B]
     local = np.arange(B, dtype=np.int64) - first[sid]           # [B]
@@ -358,10 +385,8 @@ def encode_range(x_h, n_h, hist_h, cfg: CodecConfig, device, backend=None,
 
 def candidate_maps(cfg: CodecConfig) -> Tuple[np.ndarray, np.ndarray]:
     """(predictor, table_idx) of each candidate index, as uint8 arrays."""
-    cands = cfg.candidates()
-    pred_map = np.array([p for p, _ in cands], dtype=np.uint8)
-    ti_map = np.array([ti if p == LPC else 0 for p, ti in cands], dtype=np.uint8)
-    return pred_map, ti_map
+    return tuple(t.numpy().astype(np.uint8)
+                 for t in candidate_ids(cfg, torch.device("cpu")))
 
 
 def _cat(arrays):

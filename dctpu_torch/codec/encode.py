@@ -3,7 +3,11 @@
 The counterpart of ``dctpu/codec/encode.py``, split so that each stage can
 be timed: the reference's ``encode_blocks`` is :func:`select_blocks` (the
 single-coder selection) then :func:`emit_blocks`; its adaptive pair is
-:func:`adaptive_select` then :func:`emit_blocks`.
+:func:`adaptive_select` then :func:`emit_blocks`. :func:`encode_blocks` and
+:func:`emit_blocks_body` give the reference's result, :class:`EncodedBlocks`,
+from those halves; ``encode_blocks_body`` and ``adaptive_select_body`` are
+the reference's names of :func:`encode_blocks` and :func:`adaptive_select`
+(there is no jit to separate a body from).
 
 Selection runs the exact totals kernels. Adaptive: K1 for DELTA and
 DOUBLE_DELTA and K2's LPC form for each LPC candidate, all read straight
@@ -48,7 +52,8 @@ batch of any size runs in one pass.
 
 from __future__ import annotations
 
-from typing import Tuple
+import functools
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -57,7 +62,8 @@ from dctpu_torch.codec import predict, rice
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.constants import DELTA, LPC, subs_per_block
 from dctpu_torch.kernels.exc_extract import exc_extract
-from dctpu_torch.kernels.pack import rice_pack_rows
+from dctpu_torch.kernels.api import PACK_BACKENDS
+from dctpu_torch.kernels.rice_pack import rice_pack_rows
 from dctpu_torch.kernels.rice_totals import rice_totals_lpc, rice_totals_xbp
 from dctpu_torch.kernels.select_bp import adaptive_totals_lpc, adaptive_totals_xbp
 from dctpu_torch.kernels.select_reduce import adaptive_totals_reduce
@@ -73,7 +79,18 @@ from dctpu_torch.kernels.vertical import (
 from dctpu_torch.kernels.vertical_cost import vertical_cost_lpc, vertical_cost_xbp
 
 # the reference RICE packer's backend names (dctpu/kernels/api.py pack)
-RICE_PACK_BACKENDS = (None, "auto", "xla", "scan", "merge", "scatter", "pallas")
+RICE_PACK_BACKENDS = (None, *PACK_BACKENDS)
+
+
+class EncodedBlocks(NamedTuple):
+    """The reference's encode result, each field int32 on the input's
+    device (payload: u32 bit patterns)."""
+
+    predictor: torch.Tensor  # [B]
+    k: torch.Tensor          # [B]
+    table_idx: torch.Tensor  # [B]
+    bit_len: torch.Tensor    # [B]
+    payload: torch.Tensor    # [B, W]
 
 
 def candidate_z(x, history, cfg: CodecConfig, ci: int) -> torch.Tensor:
@@ -253,3 +270,54 @@ def emit_blocks(
         return vertical_emit_rows(x, history, n, choice, cfg)
     r = predict.chosen_residuals(x, history, choice, predict.candidate_coeffs(cfg))
     return encode_vertical(rice.zigzag(r), n, x.shape[1], "pallas")
+
+
+@functools.lru_cache(maxsize=16)
+def candidate_ids(cfg: CodecConfig, device: torch.device):
+    """(predictor [C], table_idx [C]) int32 of ``cfg.candidates()``, the
+    table index 0 for DELTA and DOUBLE_DELTA; cached per configuration and
+    device, as ``args.candidate_table``."""
+    ids = torch.tensor(
+        [[p, ti if p == LPC else 0] for p, ti in cfg.candidates()],
+        dtype=torch.int32, device=device,
+    )
+    return ids[:, 0].contiguous(), ids[:, 1].contiguous()
+
+
+def emit_blocks_body(
+    x: torch.Tensor,        # [B, L] int32
+    n: torch.Tensor,        # [B] int32
+    history: torch.Tensor,  # [B, 4] int32
+    choice: torch.Tensor,   # [B] candidate index
+    k: torch.Tensor,        # [B] Rice k (ignored for vertical)
+    cfg: CodecConfig,
+    coder: str,             # "rice" | "vertical" for this group
+    backend: str | None = None,
+) -> EncodedBlocks:
+    """:func:`emit_blocks` with each block's predictor and table index from
+    its candidate, as :class:`EncodedBlocks` (k 0 for VERTICAL)."""
+    payload, bit_len = emit_blocks(x, n, history, choice, k, cfg, coder, backend)
+    pred, tidx = (t[choice.long()] for t in candidate_ids(cfg, x.device))
+    k = (torch.zeros_like(pred) if coder == "vertical"
+         else k.to(torch.int32).contiguous())
+    return EncodedBlocks(pred, k, tidx, bit_len.to(torch.int32), payload)
+
+
+def encode_blocks(
+    x: torch.Tensor,        # [B, L] int32
+    n: torch.Tensor,        # [B] int32 valid lengths
+    history: torch.Tensor,  # [B, 4] int32
+    cfg: CodecConfig,
+    backend: str | None = None,
+) -> EncodedBlocks:
+    """The reference's encode_blocks: :func:`select_blocks`, then
+    :func:`emit_blocks_body` with VERTICAL for coder="vertical" and RICE for
+    every other coder, "adaptive" included, as the reference's body does."""
+    choice, k = select_blocks(x, n, history, cfg, backend)
+    coder = "vertical" if cfg.coder == "vertical" else "rice"
+    return emit_blocks_body(x, n, history, choice, k, cfg, coder, backend)
+
+
+# the reference's names of the same functions
+encode_blocks_body = encode_blocks
+adaptive_select_body = adaptive_select

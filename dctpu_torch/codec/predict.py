@@ -28,28 +28,54 @@ def _shift_right_one(x: torch.Tensor, fill: torch.Tensor) -> torch.Tensor:
     return torch.cat([fill[:, None], x[:, :-1]], dim=1)
 
 
+def _lpc_prediction(x64, lagged, coeffs) -> torch.Tensor:
+    """The Q16 prediction from the lagged samples, int64 (wrapping
+    accumulator, arithmetic >> 16)."""
+    acc = torch.zeros_like(x64)
+    for j, c in enumerate(coeffs):
+        if int(c) != 0:
+            acc = acc + int(c) * lagged[j]  # wrapping int64
+    return acc >> LPC_SHIFT
+
+
+def _lagged(x64, h, lags: int):
+    """[x_{t-1}, ..., x_{t-lags}], each [B, L] int64."""
+    out = [_shift_right_one(x64, h[:, 0])]
+    for j in range(1, lags):
+        out.append(_shift_right_one(out[-1], h[:, j]))
+    return out
+
+
+def lpc_predict_encode(x: torch.Tensor, history: torch.Tensor, coeffs) -> torch.Tensor:
+    """LPC prediction [B, L] int32 from the true samples (encode side)."""
+    x64 = x.to(torch.int64)
+    lagged = _lagged(x64, history.to(torch.int64), 4)
+    return to_i32(_lpc_prediction(x64, lagged, coeffs))
+
+
 def residuals_for_candidate(
     x: torch.Tensor, history: torch.Tensor, predictor: int, coeffs
 ) -> torch.Tensor:
     """Forward residuals [B, L] int32 for one (predictor, table) candidate."""
     x64 = x.to(torch.int64)
     h = history.to(torch.int64)
-    x1 = _shift_right_one(x64, h[:, 0])
     if predictor == DELTA:
-        return to_i32(x64 - x1)
-    x2 = _shift_right_one(x1, h[:, 1])
+        return to_i32(x64 - _lagged(x64, h, 1)[0])
     if predictor == DOUBLE_DELTA:
+        x1, x2 = _lagged(x64, h, 2)
         return to_i32(x64 - x1 - x1 + x2)
     if predictor == LPC:
-        lagged = [x1, x2]
-        for j in (2, 3):
-            lagged.append(_shift_right_one(lagged[-1], h[:, j]))
-        acc = torch.zeros_like(x64)
-        for j, c in enumerate(coeffs):
-            if int(c) != 0:
-                acc = acc + int(c) * lagged[j]  # wrapping int64
-        return to_i32(x64 - (acc >> LPC_SHIFT))
+        return to_i32(x64 - _lpc_prediction(x64, _lagged(x64, h, 4), coeffs))
     raise ValueError(f"unknown predictor {predictor}")
+
+
+def all_candidate_residuals(x: torch.Tensor, history: torch.Tensor, cfg) -> torch.Tensor:
+    """[C, B, L] int32 residuals of every candidate of cfg, in the
+    normative order."""
+    return torch.stack([
+        residuals_for_candidate(x, history, pred, coeffs)
+        for pred, coeffs in candidate_coeffs(cfg)
+    ])
 
 
 def candidate_coeffs(cfg) -> list:

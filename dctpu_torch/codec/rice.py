@@ -12,7 +12,7 @@ from typing import Tuple
 import torch
 
 from dctpu_torch._bits import to_i32, to_u32
-from dctpu_torch.constants import ESCAPE_Q, MAX_CODE_BITS
+from dctpu_torch.constants import ESCAPE_Q, K_MAX, MAX_CODE_BITS
 
 
 def zigzag(r: torch.Tensor) -> torch.Tensor:
@@ -48,6 +48,27 @@ def rice_totals(z: torch.Tensor, n: torch.Tensor, k_max: int) -> torch.Tensor:
         ln = torch.where(q >= ESCAPE_Q, MAX_CODE_BITS, q + 1 + k)
         out.append(torch.where(valid, ln, 0).sum(1))
     return torch.stack(out, dim=1)
+
+
+def choose_k(
+    z: torch.Tensor, valid: torch.Tensor, k_max: int = K_MAX
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Exact argmin over k of the coded bits of the valid samples: z and
+    the mask valid [..., L] -> (k, bits) int32 [...], ties to the smallest
+    k (the reference's choose_k). Raises ValueError where the reference
+    asserts (k past 5 bits, or totals * 32 past int31)."""
+    L = z.shape[-1]
+    if not 0 <= k_max < 32:
+        raise ValueError(f"k_max must be in [0, 32), got {k_max}")
+    if L * MAX_CODE_BITS >= 2**26:
+        raise ValueError(f"block_len {L} too large for the packed key")
+    totals = torch.stack(
+        [torch.where(valid, code_lengths(z, torch.tensor(k)), 0).sum(-1)
+         for k in range(k_max + 1)],
+        dim=-1,
+    )
+    k, bits = best_k(totals)
+    return k.to(torch.int32), bits.to(torch.int32)
 
 
 def best_k(totals: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -8,10 +8,13 @@
 // bitstream, each codeword at the bit offset given by the exclusive prefix
 // sum of the code lengths before it, bit 0 = first stream bit, then zeros.
 //
-// Two forms, one template: FROM_X derives the residuals of the block's
-// chosen candidate from the raw samples and the history with residual.cuh,
-// the code of the selection kernels and of K3; the other reads zigzag
-// values (the reference's kernels/api.pack contract).
+// Three forms, one template, by the source of the codewords: kX derives
+// the residuals of the block's chosen candidate from the raw samples and
+// the history with residual.cuh, the code of the selection kernels and of
+// K3; kZ reads zigzag values; kCodes reads the codewords themselves, as
+// the reference's kernels/api.pack takes them (code_lo, code_hi, length,
+// valid per sample, the length of an invalid sample taken as 0), so that
+// every sample, not only a prefix of n, may be left out.
 //
 // What bounds it on the card: it reads the block once (16 KiB at block_len
 // 4096) and writes its padded row (24 KiB): bytes, once the integer work
@@ -36,10 +39,14 @@
 // (block_len above ~6600; FORMAT allows 65535) is zeroed and written in
 // device memory instead. Sub-blocks past the kept ones (block_len above
 // 4096) are derived again in pass 3, from L2.
+#include <type_traits>
+
 #include "bitplane.cuh"
 #include "residual.cuh"
 
 namespace dct {
+
+enum class PackSrc { kZ, kX, kCodes };
 
 // the largest row built in shared memory: 48 KiB less the static arrays
 constexpr int kSmemBytes = 39 * 1024;
@@ -61,15 +68,56 @@ __device__ __forceinline__ Code rice_code(uint32_t u, uint32_t kb) {
           static_cast<int>(q + 1 + kb)};
 }
 
-// The zigzag values of samples base + 4 lane + i of a block (0 from nb
-// on): a lane takes four consecutive samples. All 32 lanes call it.
-template <bool FROM_X>
-__device__ __forceinline__ void lane_z(uint32_t (&z)[4], const int32_t* src,
-                                       const int32_t* hist, int32_t* st,
-                                       int base, int nb, int pred,
-                                       const Lpc& lpc) {
+// What a lane holds of a sample: its zigzag value, or in the kCodes form
+// its codeword.
+template <PackSrc S>
+using Item = typename std::conditional<S == PackSrc::kCodes, Code, uint32_t>::type;
+
+// The codeword of a sample, or none where it is not live.
+__device__ __forceinline__ Code code_of(uint32_t z, uint32_t kb, bool live) {
+  return live ? rice_code(z, kb) : Code{0, 0};
+}
+__device__ __forceinline__ Code code_of(const Code& c, uint32_t, bool live) {
+  return live ? c : Code{0, 0};
+}
+
+// The kernel's inputs; each form reads its own.
+struct PackIn {
+  const int32_t* src;      // kZ: z [B, L]; kX: x [B, L]; kCodes: code_lo [B, L]
+  const int32_t* hist;     // kX: [B, 4]
+  const int32_t* n;        // kZ, kX: [B] valid counts
+  const int32_t* k;        // kZ, kX: [B] Rice k
+  const int32_t* choice;   // kX: [B] candidate of each block
+  const int32_t* cands;    // kX: [C, 5] predictor and Q16 coefficients
+  int num_cands;
+  const int32_t* code_hi;  // kCodes: [B, L] bits 32.. of each codeword
+  const int32_t* length;   // kCodes: [B, L] code lengths
+  const uint8_t* valid;    // kCodes: [B, L] bool
+};
+
+// The items of samples base + 4 lane + i of a block (0 from nb on): a
+// lane takes four consecutive samples. All 32 lanes call it. row is the
+// block's first sample in the [B, L] inputs.
+template <PackSrc S>
+__device__ __forceinline__ void lane_items(Item<S> (&z)[4], const PackIn& in,
+                                           size_t row, const int32_t* hist,
+                                           int32_t* st, int base, int nb,
+                                           int pred, const Lpc& lpc) {
   const int lane = threadIdx.x & 31;
-  if constexpr (FROM_X) {
+  const int32_t* src = in.src + row;
+  if constexpr (S == PackSrc::kCodes) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int t = base + 4 * lane + i;
+      if (t < nb && in.valid[row + t]) {
+        const uint64_t hi = static_cast<uint32_t>(in.code_hi[row + t]);
+        z[i] = Code{static_cast<uint32_t>(src[t]) | (hi << 32),
+                    in.length[row + t]};
+      } else {
+        z[i] = Code{0, 0};
+      }
+    }
+  } else if constexpr (S == PackSrc::kX) {
     stage_row(st, src, hist, base, nb);
     // x_{base + 4 lane - 4} .. x_{base + 4 lane + 3}: two 16-byte reads
     const int4 a = reinterpret_cast<const int4*>(st)[lane];
@@ -131,15 +179,12 @@ struct BitWriter {
   }
 };
 
-template <bool FROM_X, bool SMEM>
+template <PackSrc S, bool SMEM>
 __global__ void __launch_bounds__(kPackWarps * 32)
-rice_pack_kernel(const int32_t* __restrict__ src,
-                 const int32_t* __restrict__ hist,
-                 const int32_t* __restrict__ n, const int32_t* __restrict__ k,
-                 const int32_t* __restrict__ choice,
-                 const int32_t* __restrict__ cands, int num_cands,
-                 int32_t* __restrict__ payload, long long* __restrict__ bit_len,
-                 int block_len, int row_words) {
+rice_pack_kernel(const PackIn in, int32_t* __restrict__ payload,
+                 long long* __restrict__ bit_len, int block_len,
+                 int row_words) {
+  constexpr bool FROM_X = S == PackSrc::kX;
   extern __shared__ __align__(16) uint32_t smem_row[];
   __shared__ __align__(16) int32_t stage[kPackWarps][FROM_X ? 4 + kSub : 4];
   __shared__ int sub_bits[kMaxSubs];  // code bits of each sub-block
@@ -164,37 +209,41 @@ rice_pack_kernel(const int32_t* __restrict__ src,
     for (int t = tid; t < row_words; t += kPackWarps * 32) row[t] = 0;
   }
 
-  const int32_t* xs = src + static_cast<size_t>(blk) * block_len;
-  const int32_t* h = FROM_X ? hist + 4 * blk : nullptr;
-  const int nb = max(0, min(n[blk], block_len));
+  const size_t first = static_cast<size_t>(blk) * block_len;
+  const int32_t* h = FROM_X ? in.hist + 4 * blk : nullptr;
+  // the codes form's validity is per sample, in the codewords it reads
+  const int nb = S == PackSrc::kCodes ? block_len
+                                  : max(0, min(in.n[blk], block_len));
   // k <= 30 in a valid frame (FORMAT §2); the clamp only keeps shifts defined
-  const uint32_t kb = min(static_cast<uint32_t>(k[blk]), 31u);
+  const uint32_t kb =
+      S == PackSrc::kCodes ? 0u : min(static_cast<uint32_t>(in.k[blk]), 31u);
   int pred = kLpc;
   Lpc lpc{0, 0, 0, 0};
-  if constexpr (FROM_X) chosen_candidate(cands, num_cands, choice[blk], pred, lpc);
+  if constexpr (FROM_X)
+    chosen_candidate(in.cands, in.num_cands, in.choice[blk], pred, lpc);
   int32_t* st = stage[warp];
   uint32_t* stream = row + sync_words;
 
-  auto derive = [&](int s, uint32_t (&z)[4]) {
-    lane_z<FROM_X>(z, xs, h, st, s * kSub, nb, pred, lpc);
+  auto derive = [&](int s, Item<S> (&z)[4]) {
+    lane_items<S>(z, in, first, h, st, s * kSub, nb, pred, lpc);
   };
   // pass 1 on sub-block s: its code bits
-  auto count = [&](int s, const uint32_t (&z)[4]) {
+  auto count = [&](int s, const Item<S> (&z)[4]) {
     int bits = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i)
-      if (s * kSub + 4 * lane + i < nb) bits += rice_code(z[i], kb).len;
+      bits += code_of(z[i], kb, s * kSub + 4 * lane + i < nb).len;
     bits = static_cast<int>(__reduce_add_sync(kFull, static_cast<unsigned>(bits)));
     if (lane == 0) sub_bits[s] = bits;
   };
   // pass 2 on sub-block s: a lane's four codewords from the exclusive scan
   // of the lanes' bit counts on
-  auto pack = [&](int s, const uint32_t (&z)[4]) {
+  auto pack = [&](int s, const Item<S> (&z)[4]) {
     Code c[4];
     int bits = 0;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
-      c[i] = s * kSub + 4 * lane + i < nb ? rice_code(z[i], kb) : Code{0, 0};
+      c[i] = code_of(z[i], kb, s * kSub + 4 * lane + i < nb);
       bits += c[i].len;
     }
     int incl = bits;
@@ -209,8 +258,8 @@ rice_pack_kernel(const int32_t* __restrict__ src,
     writer.finish();
   };
 
-  // pass 1; the z of a warp's first kKeep sub-blocks stay in registers
-  uint32_t kept[kKeep][4];
+  // pass 1; the items of a warp's first kKeep sub-blocks stay in registers
+  Item<S> kept[kKeep][4];
 #pragma unroll
   for (int j = 0; j < kKeep; ++j) {
     const int s = warp + j * kPackWarps;
@@ -220,7 +269,7 @@ rice_pack_kernel(const int32_t* __restrict__ src,
     }
   }
   for (int s = warp + kKeep * kPackWarps; s < subs; s += kPackWarps) {
-    uint32_t z[4];
+    Item<S> z[4];
     derive(s, z);
     count(s, z);
   }
@@ -260,7 +309,7 @@ rice_pack_kernel(const int32_t* __restrict__ src,
     if (s < subs) pack(s, kept[j]);
   }
   for (int s = warp + kKeep * kPackWarps; s < subs; s += kPackWarps) {
-    uint32_t z[4];
+    Item<S> z[4];
     derive(s, z);
     pack(s, z);
   }
@@ -275,26 +324,25 @@ rice_pack_kernel(const int32_t* __restrict__ src,
   }
 }
 
-template <bool FROM_X>
-int launch_pack(const void* src, const void* hist, const void* n,
-                const void* k, const void* choice, const void* cands,
-                int num_cands, void* payload, void* bit_len, int num_blocks,
+template <PackSrc S>
+int launch_pack(const PackIn& in, void* payload, void* bit_len, int num_blocks,
                 int block_len, int row_words, void* stream) {
   const size_t bytes = static_cast<size_t>(row_words) * sizeof(uint32_t);
   const bool in_smem = bytes <= static_cast<size_t>(kSmemBytes);
-  const auto kernel = in_smem ? rice_pack_kernel<FROM_X, true>
-                              : rice_pack_kernel<FROM_X, false>;
+  const auto kernel = in_smem ? rice_pack_kernel<S, true>
+                              : rice_pack_kernel<S, false>;
   kernel<<<num_blocks, kPackWarps * 32, in_smem ? bytes : 0,
            static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(src), static_cast<const int32_t*>(hist),
-      static_cast<const int32_t*>(n), static_cast<const int32_t*>(k),
-      static_cast<const int32_t*>(choice), static_cast<const int32_t*>(cands),
-      num_cands, static_cast<int32_t*>(payload),
-      static_cast<long long*>(bit_len), block_len, row_words);
+      in, static_cast<int32_t*>(payload), static_cast<long long*>(bit_len),
+      block_len, row_words);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace dct
+
+static const int32_t* i32(const void* p) {
+  return static_cast<const int32_t*>(p);
+}
 
 // x form: x [B, L] raw int32 samples, hist [B, 4], n [B], k [B], choice [B]
 // and cands [C, 5] (predictor, Q16 c0..c3 per candidate) -> payload
@@ -305,9 +353,10 @@ extern "C" int dct_rice_pack_rows(const void* x, const void* hist,
                                   int num_cands, void* payload, void* bit_len,
                                   int num_blocks, int block_len, int row_words,
                                   void* stream) {
-  return dct::launch_pack<true>(x, hist, n, k, choice, cands, num_cands,
-                                payload, bit_len, num_blocks, block_len,
-                                row_words, stream);
+  const dct::PackIn in{i32(x), i32(hist), i32(n), i32(k), i32(choice),
+                       i32(cands), num_cands, nullptr, nullptr, nullptr};
+  return dct::launch_pack<dct::PackSrc::kX>(in, payload, bit_len, num_blocks,
+                                        block_len, row_words, stream);
 }
 
 // z form: z [B, L] zigzag values (int32 bit patterns), k [B], n [B]
@@ -315,7 +364,23 @@ extern "C" int dct_rice_pack_rows(const void* x, const void* hist,
 extern "C" int dct_rice_pack(const void* z, const void* k, const void* n,
                              void* payload, void* bit_len, int num_blocks,
                              int block_len, int row_words, void* stream) {
-  return dct::launch_pack<false>(z, nullptr, n, k, nullptr, nullptr, 1,
-                                 payload, bit_len, num_blocks, block_len,
-                                 row_words, stream);
+  const dct::PackIn in{i32(z), nullptr, i32(n), i32(k), nullptr, nullptr, 1,
+                       nullptr, nullptr, nullptr};
+  return dct::launch_pack<dct::PackSrc::kZ>(in, payload, bit_len, num_blocks,
+                                        block_len, row_words, stream);
+}
+
+// codes form: code_lo, code_hi [B, L] (the codewords' bits 0..31 and 32..,
+// int32 bit patterns; no bit set at or above a codeword's length), length
+// [B, L] int32 and valid [B, L] bool -> payload, bit_len as above.
+extern "C" int dct_rice_pack_codes(const void* code_lo, const void* code_hi,
+                                   const void* length, const void* valid,
+                                   void* payload, void* bit_len,
+                                   int num_blocks, int block_len,
+                                   int row_words, void* stream) {
+  const dct::PackIn in{i32(code_lo), nullptr, nullptr, nullptr, nullptr,
+                       nullptr, 1, i32(code_hi), i32(length),
+                       static_cast<const uint8_t*>(valid)};
+  return dct::launch_pack<dct::PackSrc::kCodes>(in, payload, bit_len, num_blocks,
+                                            block_len, row_words, stream);
 }

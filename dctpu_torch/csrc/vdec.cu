@@ -17,6 +17,15 @@
 // an entry, or word counts that do not add up to count_i is flagged in
 // bad[i] and decodes nothing; no block reads past its count_i words.
 //
+// The slot form (SLOT) reads the reference's VERTICAL payload rows instead
+// (dctpu/kernels/vertical_xla.py encode_vertical, the rows decode_blocks
+// takes): row i at i * row_words, its SW sync words, then sub-block s's
+// live words at the start of its 192-word slot, SW + 192 s. A sub's offset
+// is its slot, not a scan; a row whose entries are malformed (as above) or
+// whose live words would not fit their slot is flagged 1, and one with a
+// width above max_planes, the reference's static bound on b, is flagged 2.
+// Either decodes nothing.
+//
 // What bounds it on the card: it reads at most 148 words and writes 128 per
 // 128-sample row, and un-transposes b planes; the bytes bound it, but a row
 // that waits for its words in device memory waits longer than it takes to
@@ -61,20 +70,23 @@ __device__ __forceinline__ uint32_t shift_in(uint32_t v, uint32_t q, int lane) {
   return (v << 1) | ((q >> lane) & 1u);
 }
 
+template <bool SLOT>
 __global__ void __launch_bounds__(32 * kVdecWarps)
 vdec_words_kernel(const uint32_t* __restrict__ words,
                   const int64_t* __restrict__ start,
                   const int32_t* __restrict__ count,
                   const int32_t* __restrict__ n, int32_t* __restrict__ z,
-                  int32_t* __restrict__ bad, int block_len) {
+                  int32_t* __restrict__ bad, int block_len, int row_words,
+                  int max_planes) {
   __shared__ __align__(16) uint32_t slot_sh[kVdecWarps][kRegionWords];
   __shared__ uint32_t row_sh[kVdecWarps][kSub];
 
   const int blk = blockIdx.x;
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
-  const uint32_t* src = words + start[blk];
-  const int cnt = count[blk];
+  const uint32_t* src =
+      SLOT ? words + static_cast<size_t>(blk) * row_words : words + start[blk];
+  const int cnt = SLOT ? row_words : count[blk];
   const int subs = (block_len + kSub - 1) / kSub;
   const int sync_words = (subs + 1) >> 1;
   uint32_t* slot = slot_sh[warp];
@@ -90,16 +102,19 @@ vdec_words_kernel(const uint32_t* __restrict__ words,
   // pass 1 (every warp): is the table well formed, and does it describe
   // exactly count_i words?
   int total = 0;
-  bool ok = true;
+  bool ok = true, narrow = true;
   for (int s = lane; s < subs; s += 32) {
     const Entry r = parse_entry(entry_of(s), plane_words(s, block_len));
-    ok = ok && r.b <= 32 && r.n_exc <= kExcCap;
+    ok = ok && r.b <= 32 && r.n_exc <= kExcCap && r.words <= kRegionPad;
+    narrow = narrow && r.b <= max_planes;
     total += r.words;
   }
   total = __reduce_add_sync(kFull, total);
-  const bool is_bad = !__all_sync(kFull, ok) || sync_words + total != cnt;
-  if (threadIdx.x == 0) bad[blk] = is_bad;
-  if (is_bad || warp >= subs) return;
+  const bool is_bad =
+      !__all_sync(kFull, ok) || (!SLOT && sync_words + total != cnt);
+  const int flag = is_bad ? 1 : (__all_sync(kFull, narrow) ? 0 : 2);
+  if (threadIdx.x == 0) bad[blk] = flag;
+  if (flag || warp >= subs) return;
 
   // pass 2: this warp's rows s = warp, warp + kVdecWarps, ...; the lanes
   // hold the entry and the word offset of sub 32 * chunk + lane
@@ -123,6 +138,11 @@ vdec_words_kernel(const uint32_t* __restrict__ words,
   };
   // a row's entry and the offset of its words after the sync table
   auto row_of = [&](int s, Entry& r, int& off) {
+    if constexpr (SLOT) {
+      r = parse_entry(entry_of(s), plane_words(s, block_len));
+      off = s * kRegionPad;
+      return;
+    }
     if ((s >> 5) != chunk) enter_chunk(s >> 5);
     r = parse_entry(__shfl_sync(kFull, my_entry, s & 31), plane_words(s, block_len));
     off = __shfl_sync(kFull, my_off, s & 31);
@@ -219,11 +239,27 @@ extern "C" int dct_vdec_words(const void* words, const void* start,
                               const void* count, const void* n, void* z,
                               void* bad, int num_blocks, int block_len,
                               void* stream) {
-  dct::vdec_words_kernel<<<static_cast<unsigned>(num_blocks),
-                           32 * dct::kVdecWarps, 0,
-                           static_cast<cudaStream_t>(stream)>>>(
+  dct::vdec_words_kernel<false><<<static_cast<unsigned>(num_blocks),
+                                  32 * dct::kVdecWarps, 0,
+                                  static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(words), static_cast<const int64_t*>(start),
       static_cast<const int32_t*>(count), static_cast<const int32_t*>(n),
-      static_cast<int32_t*>(z), static_cast<int32_t*>(bad), block_len);
+      static_cast<int32_t*>(z), static_cast<int32_t*>(bad), block_len, 0, 32);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// slot form: payload [B, row_words] the reference's VERTICAL rows (int32
+// bit patterns, row_words >= SW + S * 192), n [B] -> z [B, L] as above and
+// bad [B] (1: a malformed sync table, 2: a width above max_planes; such a
+// block's z is not written).
+extern "C" int dct_vdec_slots(const void* payload, const void* n, void* z,
+                              void* bad, int num_blocks, int block_len,
+                              int row_words, int max_planes, void* stream) {
+  dct::vdec_words_kernel<true><<<static_cast<unsigned>(num_blocks),
+                                 32 * dct::kVdecWarps, 0,
+                                 static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(payload), nullptr, nullptr,
+      static_cast<const int32_t*>(n), static_cast<int32_t*>(z),
+      static_cast<int32_t*>(bad), block_len, row_words, max_planes);
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,13 +9,16 @@ chunk overlap in selection and in decode, each of which launches every
 shard before its first host read; emission reads each shard back before
 the next shard's is launched, so the shards emit in turn.
 
-The reference's four jitted block functions (``encode_blocks_sharded``,
+The reference's four block functions (``encode_blocks_sharded``,
 ``decode_blocks_sharded``, ``adaptive_select_sharded``,
 ``emit_blocks_sharded``) wrap its single-device bodies in ``shard_map``;
-their work here is the range encoder and decoder, so they have no
-counterpart of their own. Nor does its padding of each chunk to a multiple
-of the mesh size, which exists for JAX's static shapes: a shard with no
-blocks is skipped.
+here each cuts its block tensors into one contiguous shard per device of
+the mesh (as :func:`api.shard_ranges` cuts a chunk), runs the
+single-device function of ``codec/encode.py`` or ``codec/decode.py`` on
+each shard's device, launching every shard before the first host read,
+and gathers the results in block order on ``mesh[0]``. Unlike the
+reference, B need not be a multiple of the mesh size, and nothing is
+padded for JAX's static shapes: a shard with no blocks is skipped.
 """
 
 from __future__ import annotations
@@ -23,11 +26,14 @@ from __future__ import annotations
 from typing import List, Sequence
 
 import numpy as np
+import torch
 
-from dctpu_torch.codec import api
+from dctpu_torch.codec import api, decode, encode
+from dctpu_torch.codec.encode import EncodedBlocks
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.dist.mesh import make_mesh
 from dctpu_torch.format.frame import Frame
+from dctpu_torch.kernels.vdec import raise_if_bad_slots
 
 
 def compress_sharded(
@@ -61,3 +67,96 @@ def decompress_sharded(
     xs = api.decode_blocks_array(frame, make_mesh(mesh), stage_ms, chunk_blocks,
                                  backend)
     return api.split_streams(xs, frame.streams)
+
+
+# ---------------------------------------------------- the block functions
+
+
+def _on_shards(fn, mesh, tensors):
+    """fn(*the shard's slices of tensors, moved to its device) on each
+    contiguous shard of their first axis, one per device of mesh; returns
+    [(device, result)], every shard launched before any result is read."""
+    mesh = make_mesh(mesh)
+    B = tensors[0].shape[0]
+    return [
+        (mesh[i], fn(*(t[a:b].to(mesh[i]) for t in tensors)))
+        for i, a, b in api.shard_ranges(0, B, len(mesh))
+    ]
+
+
+def _gather(results, dev) -> List[torch.Tensor]:
+    """Each field of the shards' results concatenated in shard order on dev."""
+    return [torch.cat([t.to(dev) for t in col]) for col in zip(*results)]
+
+
+def encode_blocks_sharded(
+    x: torch.Tensor,        # [B, L] int32
+    n: torch.Tensor,        # [B]
+    history: torch.Tensor,  # [B, 4]
+    cfg: CodecConfig,
+    mesh: Sequence | None,
+    backend: str | None = "auto",
+) -> EncodedBlocks:
+    """``encode.encode_blocks`` of each shard on its device -> the
+    :class:`EncodedBlocks` of the whole batch on ``mesh[0]``."""
+    parts = _on_shards(
+        lambda *t: encode.encode_blocks(*t, cfg, backend), mesh, (x, n, history))
+    return EncodedBlocks(*_gather([r for _, r in parts], parts[0][0]))
+
+
+def adaptive_select_sharded(
+    x: torch.Tensor, n: torch.Tensor, history: torch.Tensor,
+    cfg: CodecConfig, mesh: Sequence | None, backend: str | None = "auto",
+):
+    """``encode.adaptive_select`` of each shard -> (choice, coder, k) of the
+    whole batch on ``mesh[0]``."""
+    parts = _on_shards(
+        lambda *t: encode.adaptive_select(*t, cfg, backend), mesh, (x, n, history))
+    return tuple(_gather([r for _, r in parts], parts[0][0]))
+
+
+def emit_blocks_sharded(
+    x: torch.Tensor, n: torch.Tensor, history: torch.Tensor,
+    choice: torch.Tensor, k: torch.Tensor,
+    cfg: CodecConfig, coder: str, mesh: Sequence | None,
+    backend: str | None = "auto",
+) -> EncodedBlocks:
+    """``encode.emit_blocks_body`` of each shard (one coder group, its
+    selection given) -> :class:`EncodedBlocks` on ``mesh[0]``."""
+    parts = _on_shards(
+        lambda *t: encode.emit_blocks_body(*t, cfg, coder, backend), mesh,
+        (x, n, history, choice, k))
+    return EncodedBlocks(*_gather([r for _, r in parts], parts[0][0]))
+
+
+def decode_blocks_sharded(
+    payload: torch.Tensor,  # [B, Wp] int32 bit patterns
+    k: torch.Tensor,
+    n: torch.Tensor,
+    predictor: torch.Tensor,
+    table_idx: torch.Tensor,
+    history: torch.Tensor,
+    table_coeffs,           # [T, 4], replicated to every device
+    block_len: int,
+    has_lpc: bool,
+    mesh: Sequence | None,
+    backend: str | None = "auto",
+    coder: str = "rice",
+    max_planes: int = 32,
+    buf_words: int = 0,
+) -> torch.Tensor:
+    """``decode.decode_blocks`` of each shard -> x [B, block_len] on
+    ``mesh[0]``: every shard's kernels are launched before the first host
+    read, K4's flags."""
+    coeffs = decode.table_coeffs_i32(table_coeffs, "cpu")
+
+    def one(*t):
+        return decode.launch_decode_blocks(
+            *t, coeffs.to(t[0].device), block_len, has_lpc, backend, coder,
+            max_planes, buf_words)
+
+    parts = _on_shards(one, mesh, (payload, k, n, predictor, table_idx, history))
+    for _, (_, bad) in parts:
+        if bad is not None:
+            raise_if_bad_slots(bad)
+    return _gather([(x,) for _, (x, _) in parts], parts[0][0])[0]

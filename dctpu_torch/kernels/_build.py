@@ -47,11 +47,13 @@ SIGNATURES = {
     "dct_vemit_rows": (_P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _P),
     "dct_vemit_rows_z": (_P, _P, _P, _P, _I, _I, _P),
     "dct_vdec_words": (_P, _P, _P, _P, _P, _P, _I, _I, _P),
+    "dct_vdec_slots": (_P, _P, _P, _P, _I, _I, _I, _I, _P),
     "dct_rice_totals": (_P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals_xbp": (_P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_totals_lpc": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P),
     "dct_rice_pack": (_P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_pack_rows": (_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _P),
+    "dct_rice_pack_codes": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_rice_unpack_words": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P),
     "dct_select_reduce": (_P, _P, _P, _I, _I, _I, _P),
     "dct_exc_extract": (_P, _P, _P, _P, _I, _P),

@@ -5,16 +5,19 @@ with the codewords, sync table and bit_len its wrapper formed in XLA
 around the kernel). The CUDA kernel (``dctpu_torch/csrc/pack.cu``) forms
 each codeword itself and writes the rows and bit lengths of
 ``encode.emit_blocks(..., coder="rice")`` in one launch per coder group,
-in two forms:
+in three forms:
 
   * :func:`rice_pack_rows`, the x form: it derives each block's chosen
     candidate's residuals from the raw samples, as K3's x form does; every
     RICE emission runs it;
-  * :func:`rice_pack`, the z form, on zigzag values: the reference's
-    ``kernels/api.pack`` contract.
+  * :func:`rice_pack`, the z form, on zigzag values;
+  * :func:`rice_pack_codes`, the codes form, on the codewords themselves
+    (low and high words, lengths, a validity mask): the reference's
+    ``kernels/api.pack`` contract, which ``kernels/api.py`` ports.
 
-The z form's plain twin is ``rice.codewords`` followed by :func:`pack`, the
-``dctpu/kernels/pack_xla.py`` formulation:
+The z form's plain twin is ``rice.codewords`` followed by
+:func:`pack_plain`, the ``dctpu/kernels/pack_xla.py`` formulation, which is
+also the codes form's twin:
 
   1. exclusive prefix sum of the code lengths: every sample's bit offset;
   2. per-128-sample length sums: the payload's leading sync table;
@@ -34,7 +37,7 @@ from typing import Tuple
 
 import torch
 
-from dctpu_torch._bits import MASK32, to_i32
+from dctpu_torch._bits import MASK32, to_i32, to_u32
 from dctpu_torch.codec import predict, rice
 from dctpu_torch.constants import (
     MAX_CODE_BITS,
@@ -64,7 +67,7 @@ def make_sync_table(length: torch.Tensor, block_len: int) -> torch.Tensor:
     return pairs[:, :, 0] | (pairs[:, :, 1] << 16)
 
 
-def pack(
+def pack_plain(
     code: torch.Tensor,    # [B, L] int64 codewords (< 2**48)
     length: torch.Tensor,  # [B, L] int64 code lengths
     valid: torch.Tensor,   # [B, L] bool
@@ -101,7 +104,7 @@ def rice_pack_plain(z, k, n, block_len: int):
     L = z.shape[1]
     valid = torch.arange(L, device=z.device)[None, :] < n.to(torch.int64)[:, None]
     code, length = rice.codewords(z, k.to(torch.int64)[:, None])
-    return pack(code, length, valid, block_len)
+    return pack_plain(code, length, valid, block_len)
 
 
 def rice_pack(
@@ -182,3 +185,53 @@ def rice_pack_rows(
 
 
 rice_pack_rows.launches = 0
+
+
+def rice_pack_codes_plain(code_lo, code_hi, length, valid, block_len: int):
+    """Plain twin of K5a's codes form: each codeword as one int64, then
+    :func:`pack_plain`."""
+    code = to_u32(code_lo) | (to_u32(code_hi) << 32)
+    return pack_plain(code, length.to(torch.int64), valid, block_len)
+
+
+def rice_pack_codes(
+    code_lo: torch.Tensor,  # [B, L] bits 0..31 of each codeword (int32 bit patterns)
+    code_hi: torch.Tensor,  # [B, L] bits 32.. of each codeword
+    length: torch.Tensor,   # [B, L] code lengths, <= 48
+    valid: torch.Tensor,    # [B, L] bool: the samples that are coded
+    block_len: int,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K5a, codes form: (payload [B, padded_words(L)] int32 bit patterns
+    incl. sync table, bit_len [B] int64) of the codewords, each at the bit
+    offset that the lengths before it give; an invalid sample's length
+    counts as 0. No codeword may have a bit set at or above its length,
+    as ``rice.codewords`` gives them."""
+    if code_lo.device.type == "cpu":
+        return rice_pack_codes_plain(code_lo, code_hi, length, valid, block_len)
+    if code_lo.device.type != "cuda":
+        raise ValueError(f"rice_pack_codes: unsupported device {code_lo.device}")
+    code_lo, code_hi, length = (
+        t.to(torch.int32).contiguous() for t in (code_lo, code_hi, length)
+    )
+    valid = valid.to(torch.bool).contiguous()
+    _build.check_tensors("rice_pack_codes", code_lo, code_hi, length)
+    B, L = code_lo.shape
+    if (L != block_len or code_hi.shape != (B, L) or length.shape != (B, L)
+            or valid.shape != (B, L) or valid.device != code_lo.device):
+        raise ValueError(
+            "rice_pack_codes: expects code_lo, code_hi, length and valid "
+            "[B, block_len] on one device"
+        )
+    payload, bit_len = rows_out(B, L, padded_words(L), code_lo.device)
+    if B:
+        _build.launch(
+            "dct_rice_pack_codes", code_lo,
+            code_lo.data_ptr(), code_hi.data_ptr(), length.data_ptr(),
+            valid.data_ptr(), payload.data_ptr(), bit_len.data_ptr(), B, L,
+            payload.shape[1],
+        )
+        rice_pack_codes.launches += 1
+    return payload, bit_len
+
+
+rice_pack_codes.launches = 0

@@ -34,7 +34,7 @@ from dctpu_torch.constants import (
     sync_words,
 )
 from dctpu_torch.kernels import _build, ragged
-from dctpu_torch.kernels.pack import padded_words
+from dctpu_torch.kernels.rice_pack import padded_words
 
 
 def _funnel(lo: torch.Tensor, hi: torch.Tensor, s: torch.Tensor) -> torch.Tensor:

@@ -18,6 +18,12 @@ the rows with ``ragged.stage_vertical`` and runs it.
 launches the kernel for tensors on a CUDA device;
 ``decode_vertical_words.launches`` counts the kernel launches. Both raise
 ValueError for a block whose sync table does not describe its words.
+
+K4's slot form, :func:`decode_vertical_slots` (``dct_vdec_slots``), reads
+those staged rows themselves, the payload rows of the reference's
+``encode_vertical`` that its ``decode_blocks`` takes: each sub-block's
+words at the start of its slot. Its twin is :func:`decode_vertical_plain`
+after the checks of :func:`check_slot_rows`.
 """
 
 from __future__ import annotations
@@ -166,3 +172,96 @@ def raise_if_bad(bad) -> None:
 
 
 decode_vertical_words.launches = 0
+
+
+BAD_MAX_PLANES = "a VERTICAL sub-block's width exceeds max_planes"
+
+
+def check_slot_rows(payload: torch.Tensor, block_len: int, max_planes: int) -> None:
+    """The rows that K4's slot form decodes: at least SW + S * REGION_PAD
+    words wide, every sync entry well formed (its live words then fit the
+    slot) and no width above max_planes; raises ValueError otherwise."""
+    S = subs_per_block(block_len)
+    SW = sync_words(block_len)
+    if payload.dim() != 2 or payload.shape[1] < SW + S * REGION_PAD:
+        raise ValueError(
+            f"decode_vertical_slots: expects rows [B, >= {SW + S * REGION_PAD}]"
+        )
+    b, n_exc, _, _ = parse_sync(payload[:, :SW], S)
+    if bool(((b > 32) | (n_exc > EXC_CAP)).any()):
+        raise ValueError(ragged.BAD_VERTICAL_TABLE)
+    if bool((b > max_planes).any()):
+        raise ValueError(BAD_MAX_PLANES)
+
+
+def decode_vertical_slots_plain(
+    payload: torch.Tensor, n: torch.Tensor, block_len: int, max_planes: int = 32
+) -> torch.Tensor:
+    """Plain twin of K4's slot form: :func:`check_slot_rows`, then
+    :func:`decode_vertical_plain` on the rows' first SW + S * REGION_PAD
+    words."""
+    check_slot_rows(payload, block_len, max_planes)
+    width = sync_words(block_len) + subs_per_block(block_len) * REGION_PAD
+    return decode_vertical_plain(payload[:, :width], n, block_len)
+
+
+def launch_vdec_slots(payload: torch.Tensor, n: torch.Tensor, block_len: int,
+                      max_planes: int = 32):
+    """K4's slot form on CUDA tensors -> (z, bad): bad [B] int32 is 1 where
+    a row's sync table is malformed, 2 where a width exceeds max_planes;
+    such a row's z is not written. Read the flags with
+    :func:`raise_if_bad_slots`."""
+    if payload.device.type != "cuda":
+        raise ValueError(
+            f"decode_vertical_slots: unsupported device {payload.device}"
+        )
+    n = n.to(torch.int32).contiguous()
+    payload = payload.contiguous()
+    _build.check_tensors("decode_vertical_slots", payload, n)
+    S = subs_per_block(block_len)
+    B = n.numel()
+    if (payload.dim() != 2 or payload.shape[0] != B
+            or payload.shape[1] < sync_words(block_len) + S * REGION_PAD):
+        raise ValueError(
+            "decode_vertical_slots: expects rows [B, >= SW + S * REGION_PAD] "
+            "and n [B]"
+        )
+    z = torch.empty((B, block_len), dtype=torch.int32, device=payload.device)
+    bad = torch.empty(B, dtype=torch.int32, device=payload.device)
+    if B:
+        _build.launch(
+            "dct_vdec_slots", payload,
+            payload.data_ptr(), n.data_ptr(), z.data_ptr(), bad.data_ptr(), B,
+            block_len, payload.shape[1], max_planes,
+        )
+        decode_vertical_slots.launches += 1
+    return z, bad
+
+
+def raise_if_bad_slots(bad) -> None:
+    """One host read of :func:`launch_vdec_slots`' flags -> the twin's
+    ValueError for a flagged row."""
+    flags = bad.cpu()
+    if bool((flags == 1).any()):
+        raise ValueError(ragged.BAD_VERTICAL_TABLE)
+    if bool(flags.any()):
+        raise ValueError(BAD_MAX_PLANES)
+
+
+def decode_vertical_slots(
+    payload: torch.Tensor,  # [B, >= SW + S*REGION_PAD] int32 bit patterns
+    n: torch.Tensor,        # [B] valid samples
+    block_len: int,
+    max_planes: int = 32,
+) -> torch.Tensor:
+    """K4, slot form: z [B, block_len] zigzag values as int32 bit patterns
+    (zeros past n) -- the contract of :func:`decode_vertical_slots_plain`,
+    whose ValueErrors one host read of the kernel's flags raises."""
+    if payload.device.type == "cpu":
+        return decode_vertical_slots_plain(payload, n, block_len, max_planes)
+    z, bad = launch_vdec_slots(payload, n, block_len, max_planes)
+    raise_if_bad_slots(bad)
+    return z
+
+
+decode_vertical_slots.launches = 0

@@ -8,6 +8,7 @@ tests/test_torch_codec_ragged.py runs the same checks at block_len 300
 """
 
 import dataclasses
+import importlib
 import subprocess
 import sys
 from pathlib import Path
@@ -28,13 +29,13 @@ from dctpu_torch.config import CodecConfig, from_reference
 from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
     exc_extract,
-    pack,
     reconstruct,
+    rice_pack,
     rice_totals,
+    rice_unpack,
     select_bp,
     select_reduce,
     transpose,
-    unpack,
     vdec,
     vemit,
 )
@@ -234,9 +235,12 @@ def test_wrappers_refuse_other_devices():
         lambda: rice_totals.rice_totals(z, n, 256, 24),
         lambda: rice_totals.rice_totals_xbp(z, h, n, 256, 24),
         lambda: rice_totals.rice_totals_lpc(z, h, n, (1, 2, 3, 4), 256, 24),
-        lambda: pack.rice_pack(z, n, n, 256),
-        lambda: pack.rice_pack_rows(z, h, n, n, n, CodecConfig(block_len=256)),
-        lambda: unpack.rice_unpack_words(words, n, n, n, n, 256),
+        lambda: rice_pack.rice_pack(z, n, n, 256),
+        lambda: rice_pack.rice_pack_rows(z, h, n, n, n, CodecConfig(block_len=256)),
+        lambda: rice_unpack.rice_unpack_words(words, n, n, n, n, 256),
+        lambda: rice_pack.rice_pack_codes(z, z, z, z.bool(), 256),
+        lambda: vdec.decode_vertical_slots(torch.zeros((2, 194), dtype=torch.int32,
+                                                       device="meta"), n, 256),
         lambda: select_reduce.adaptive_totals_reduce(z, n, 256, 24),
         lambda: exc_extract.exc_extract(z.reshape(2, 2, 128), n.reshape(2, 1)),
         lambda: transpose.bit_planes32(z.reshape(4, 128)),
@@ -250,7 +254,7 @@ def test_port_imports_no_jax():
     code = (
         "import sys\n"
         "from dctpu_torch.codec import compress, decompress\n"
-        "import dctpu_torch.kernels.vemit, dctpu_torch.kernels.pack\n"
+        "import dctpu_torch.kernels.vemit, dctpu_torch.kernels.rice_pack\n"
         "import dctpu_torch.kernels.vertical_cost\n"
         "from dctpu_torch import (BLOCK_LEN_DEFAULT, DELTA, DOUBLE_DELTA,\n"
         "    ESCAPE_Q, K_MAX, LPC, MAX_CODE_BITS, RAW_BITS)\n"
@@ -260,6 +264,13 @@ def test_port_imports_no_jax():
         "import dctpu_torch.kernels.transpose, dctpu_torch.kernels.reconstruct\n"
         "import dctpu_torch.dist, dctpu_torch.dist.multihost, dctpu_torch.utils\n"
         "import dctpu_torch.bench\n"
+        "from dctpu_torch.kernels import pack, unpack, pack_xla, unpack_xla, padded_words\n"
+        "import dctpu_torch.kernels.api, dctpu_torch.kernels.rice_unpack\n"
+        "from dctpu_torch.codec.encode import EncodedBlocks, encode_blocks\n"
+        "from dctpu_torch.codec.decode import decode_blocks\n"
+        "from dctpu_torch.dist import encode_blocks_sharded, decode_blocks_sharded\n"
+        "from dctpu_torch import native\n"
+        "native.build_blocks\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')\n"
         "       or m == 'dctpu' or m.startswith('dctpu.')]\n"
         "assert not bad, bad\n"
@@ -290,6 +301,56 @@ def test_package_names_match_the_reference():
         assert name in dir(dctpu_torch.codec)
     with pytest.raises(AttributeError):
         dctpu_torch.codec.scalar_compress  # noqa: B018 (not ported)
+
+
+def test_block_api_names_match_the_reference():
+    """The block-batch codec, its sharded forms, the kernel-level API, the
+    small helpers and the native host feed: each public name of the
+    reference's module that the port ports is a callable of the port's
+    counterpart."""
+    import dctpu.codec.decode
+    import dctpu.codec.encode
+    import dctpu.codec.predict
+    import dctpu.codec.rice
+    import dctpu.dist
+    import dctpu.dist.sharded
+    import dctpu.kernels
+    import dctpu.native
+    import dctpu_torch.codec.decode
+    import dctpu_torch.codec.encode
+    import dctpu_torch.codec.predict
+    import dctpu_torch.codec.rice
+    import dctpu_torch.dist
+    import dctpu_torch.dist.sharded
+    import dctpu_torch.kernels
+    import dctpu_torch.kernels.api
+    import dctpu_torch.native
+
+    names = {
+        "codec.encode": ("EncodedBlocks", "encode_blocks", "encode_blocks_body",
+                         "adaptive_select", "adaptive_select_body",
+                         "emit_blocks", "emit_blocks_body"),
+        "codec.decode": ("decode_blocks", "decode_blocks_body"),
+        "codec.rice": ("choose_k", "choose_k_planes", "choose_k_auto",
+                       "codewords", "zigzag", "unzigzag", "code_lengths"),
+        "codec.predict": ("lpc_predict_encode", "all_candidate_residuals",
+                          "residuals_for_candidate", "reconstruct_all"),
+        "dist": ("compress_sharded", "decompress_sharded",
+                 "encode_blocks_sharded", "decode_blocks_sharded", "make_mesh"),
+        "dist.sharded": ("encode_blocks_sharded", "decode_blocks_sharded",
+                         "adaptive_select_sharded", "emit_blocks_sharded"),
+        "kernels": ("pack", "unpack", "pack_xla", "unpack_xla", "padded_words"),
+        "kernels.api": ("default_backend", "pack", "unpack"),
+        "native": ("build_blocks",),
+    }
+    for mod, attrs in names.items():
+        ref = importlib.import_module(f"dctpu.{mod}")
+        port = importlib.import_module(f"dctpu_torch.{mod}")
+        for name in attrs:
+            assert callable(getattr(ref, name)), (mod, name)
+            assert callable(getattr(port, name)), (mod, name)
+    assert dctpu_torch.codec.encode.EncodedBlocks._fields == (
+        dctpu.codec.encode.EncodedBlocks._fields)
 
 
 def test_decode_range_matches_reference_decode(frames512):

@@ -1,8 +1,9 @@
 """The CUDA kernels K1-K9, R, VC and CP (and the x forms of K2, K3, K5a and K6,
-the words forms of K4 and K5b, and K9's disk-order planes) against their
-plain twins, on the card, the launches of the round trips, and the sharded
-path over two shards of the card with the device guard of every launch,
-and the bench (``dctpu_torch.bench``) at 256 blocks.
+the words forms of K4 and K5b, K5a's codes form, K4's slot form, and K9's
+disk-order planes) against their plain twins, on the card, the launches of
+the round trips and of the block-batch codec, and the sharded path over
+two shards of the card with the device guard of every launch, and the
+bench (``dctpu_torch.bench``) at 256 blocks.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -20,30 +21,35 @@ import torch
 
 import chip_smoke
 from chip_smoke import scatter_blocks
-from dctpu_torch import bench
-from dctpu_torch._bits import to_i32
-from dctpu_torch.codec import api, encode, predict
+from dctpu_torch import bench, kernels
+from dctpu_torch._bits import MASK32, to_i32
+from dctpu_torch.codec import api, decode, encode, predict, rice
 from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
 from dctpu_torch.corpus import synth_corpus
-from dctpu_torch.dist import compress_sharded, decompress_sharded
+from dctpu_torch.dist import (
+    compress_sharded,
+    decode_blocks_sharded,
+    decompress_sharded,
+    encode_blocks_sharded,
+)
 from dctpu_torch.format import read_frame, write_frame
 from dctpu_torch.kernels import (
     _build,
     compact,
     exc_extract,
-    pack,
     ragged,
     reconstruct,
+    rice_pack,
     rice_totals,
+    rice_unpack,
     select_bp,
     select_reduce,
     transpose,
-    unpack,
     vdec,
     vemit,
     vertical_cost,
 )
-from dctpu_torch.kernels.vertical import sub_rows
+from dctpu_torch.kernels.vertical import parse_sync, sub_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -173,8 +179,8 @@ def test_rice_kernels_match_twins_on_card(cuda, L):
     blocks = torch.arange(B, device=cuda)
     choice = (blocks % len(cfg.candidates())).to(torch.int32)
     k31 = (blocks % 31).to(torch.int32)
-    _same(pack.rice_pack_rows(x, h, n, choice, k31, cfg),
-          pack.rice_pack_rows_plain(x, h, n, choice, k31, cfg))
+    _same(rice_pack.rice_pack_rows(x, h, n, choice, k31, cfg),
+          rice_pack.rice_pack_rows_plain(x, h, n, choice, k31, cfg))
     _same((rice_totals.rice_totals(z, n, L, 24),),
           (rice_totals.rice_totals_plain(z, n, L, 24),))
     _same((rice_totals.rice_totals_xbp(x, h, n, L, 24),),
@@ -182,13 +188,13 @@ def test_rice_kernels_match_twins_on_card(cuda, L):
     for coeffs in [t.coeffs for t in DEFAULT_LPC_TABLES] + [WRAP]:
         _same((rice_totals.rice_totals_lpc(x, h, n, coeffs, L, 24),),
               (rice_totals.rice_totals_lpc_plain(x, h, n, coeffs, L, 24),))
-    packed = pack.rice_pack(z, k, n, L)
-    _same(packed, pack.rice_pack_plain(z, k, n, L))
+    packed = rice_pack.rice_pack(z, k, n, L)
+    _same(packed, rice_pack.rice_pack_plain(z, k, n, L))
     flat = ragged.compact_payload(*packed, L)
     wc = ragged.payload_word_counts(packed[1], L)
     start = torch.cumsum(wc, 0) - wc
-    _same((unpack.rice_unpack_words(flat, start, wc, k, n, L),),
-          (unpack.rice_unpack_words_plain(flat, start, wc, k, n, L),))
+    _same((rice_unpack.rice_unpack_words(flat, start, wc, k, n, L),),
+          (rice_unpack.rice_unpack_words_plain(flat, start, wc, k, n, L),))
 
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
@@ -212,9 +218,9 @@ def test_emit_rows_refuse_host_arguments_on_card(cuda):
     cfg = CodecConfig(block_len=300)
     choice = torch.zeros(x.shape[0], dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="one device"):
-        pack.rice_pack_rows(x, h, n, choice, k.cpu(), cfg)
+        rice_pack.rice_pack_rows(x, h, n, choice, k.cpu(), cfg)
     with pytest.raises(ValueError, match="one device"):
-        pack.rice_pack_rows(x, h, n, choice.cpu(), k, cfg)
+        rice_pack.rice_pack_rows(x, h, n, choice.cpu(), k, cfg)
     with pytest.raises(ValueError, match="one device"):
         vemit.vertical_emit_rows(x, h, n, choice.cpu(), cfg)
 
@@ -225,15 +231,15 @@ def test_decode_words_match_twins_on_card(cuda, L):
     shuffled order between words of no block; a few RICE blocks are cut
     short (one below its sync table); a bad VERTICAL sync entry raises."""
     z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 21))
-    payload, bit_len = pack.rice_pack(z, k, n, L)
+    payload, bit_len = rice_pack.rice_pack(z, k, n, L)
     flat = ragged.compact_payload(payload, bit_len, L)
     words, start, count = scatter_blocks(
         flat, ragged.payload_word_counts(bit_len, L), seed=L)
     count[0] -= 5
     count[2] //= 2
     count[5] = 0
-    _same((unpack.rice_unpack_words(words, start, count, k, n, L),),
-          (unpack.rice_unpack_words_plain(words, start, count, k, n, L),))
+    _same((rice_unpack.rice_unpack_words(words, start, count, k, n, L),),
+          (rice_unpack.rice_unpack_words_plain(words, start, count, k, n, L),))
 
     rows, vbits = vemit.vertical_emit_rows_z(z, n, L)
     words, start, count = scatter_blocks(*ragged.compact_vertical(rows, vbits, L),
@@ -342,7 +348,7 @@ def test_backend_paths_on_card(cuda):
     assert set(read_frame(want).blocks.coder_arr().tolist()) == {0, 1}
     counted = (vemit.vertical_emit_rows, exc_extract.exc_extract,
                transpose.bit_planes32, select_bp.adaptive_totals_xbp,
-               select_bp.adaptive_totals_lpc, pack.rice_pack_rows, pack.rice_pack)
+               select_bp.adaptive_totals_lpc, rice_pack.rice_pack_rows, rice_pack.rice_pack)
     staged = encode._emit_staged
 
     def staged_without_flip(*args):
@@ -400,7 +406,7 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
     monkeypatch.setattr(ragged, "segment_index", _refuse)
     counted = (reconstruct.reconstruct, vemit.vertical_emit_rows,
                vemit.vertical_emit_rows_z, vdec.decode_vertical_words,
-               unpack.rice_unpack_words, pack.rice_pack_rows, pack.rice_pack,
+               rice_unpack.rice_unpack_words, rice_pack.rice_pack_rows, rice_pack.rice_pack,
                compact.compact_range, compact.count_range)
     for fn in counted:
         fn.launches = 0
@@ -435,7 +441,7 @@ def test_compact_range_matches_twin_on_card(cuda, B, L):
                 torch.zeros(0, dtype=torch.int64, device=cuda), L)
     else:
         z, _, _, n, k = (t.to(cuda) for t in _inputs(L, 31, B=B))
-        rice, vert = pack.rice_pack(z, k, n, L), vemit.vertical_emit_rows_z(z, n, L)
+        rice, vert = rice_pack.rice_pack(z, k, n, L), vemit.vertical_emit_rows_z(z, n, L)
         args = (*chip_smoke.compact_groups(*rice, *vert, seed=L), L)
     coder, bit_len = args[2:4]
     compact.count_range.launches = compact.compact_range.launches = 0
@@ -611,3 +617,99 @@ def test_bench_on_card(cuda, tmp_path):
                 "dec_download_ms"} <= set(stages)
         assert all(r[k] > 0 for k in stages), {k: r[k] for k in stages}
         assert r["enc_peak_bytes_per_byte"] > 0 and r["dec_peak_bytes_per_byte"] > 0
+
+
+def _codes(z, k, valid):
+    """rice.codewords of z at k as (code_lo, code_hi, length, valid), with
+    samples left out inside the blocks as well as past their ends."""
+    code, length = rice.codewords(z, k.to(torch.int64)[:, None])
+    return (to_i32(code & MASK32), to_i32(code >> 32), length.to(torch.int32),
+            valid)
+
+
+@pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
+def test_pack_codes_matches_twin_on_card(cuda, L):
+    """K5a's codes form equals its twin, with holes in the validity mask;
+    kernels.pack launches it once and equals pack_xla."""
+    z, _, _, n, _ = (t.to(cuda) for t in _inputs(L, 31))
+    k = (torch.arange(z.shape[0], device=cuda) % 31).to(torch.int32)
+    valid = torch.arange(L, device=cuda)[None, :] < n[:, None]
+    valid[5, ::3] = False
+    args = _codes(z, k, valid)
+    _same(rice_pack.rice_pack_codes(*args, L),
+          rice_pack.rice_pack_codes_plain(*args, L))
+    rice_pack.rice_pack_codes.launches = 0
+    got = kernels.pack(*args, L)
+    assert rice_pack.rice_pack_codes.launches == 1
+    _same(got, kernels.pack_xla(*args, L))
+
+
+@pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])
+def test_vdec_slots_matches_twin_on_card(cuda, L):
+    """K4's slot form on payload rows (two words of junk past each row)
+    equals its twin; a malformed sync entry and a width above max_planes
+    raise ValueError."""
+    z, _, _, n, _ = (t.to(cuda) for t in _inputs(L, 33))
+    rows, _ = vemit.vertical_emit_rows_z(z, n, L)
+    junk = torch.full((rows.shape[0], 2), -1, dtype=torch.int32, device=cuda)
+    rows = torch.cat([rows, junk], 1)
+    _same((vdec.decode_vertical_slots(rows, n, L),),
+          (vdec.decode_vertical_slots_plain(rows, n, L),))
+    S = -(-L // 128)
+    widest = int(parse_sync(rows[:, :(S + 1) // 2], S)[0].max())
+    if widest > 0:
+        with pytest.raises(ValueError, match="max_planes"):
+            vdec.decode_vertical_slots(rows, n, L, max_planes=widest - 1)
+    rows[3, 0] = (rows[3, 0] & -(1 << 16)) | 40  # sub 0: b = 40
+    with pytest.raises(ValueError, match="sync table does not match"):
+        vdec.decode_vertical_slots(rows, n, L)
+
+
+def test_block_api_on_card(cuda, monkeypatch):
+    """encode_blocks -> decode_blocks for rice and vertical round trips on
+    the card and equals the CPU; decode_blocks launches K5b or K4's slot
+    form once, then R once; pack -> unpack round trips; the sharded block
+    functions over two shards of the card equal one device; no plain
+    stage runs on the card."""
+    L = 4096
+    streams, _, _ = synth_corpus(3, 5 * L + 77, seed=8, cumulative_frac=0.5)
+    x, n, h = (torch.from_numpy(a) for a in api.build_blocks(streams, L)[:3])
+    tables = [t.coeffs for t in DEFAULT_LPC_TABLES]
+    cfgs = {c: CodecConfig(block_len=L, coder=c) for c in ("rice", "vertical")}
+    cpu = {c: encode.encode_blocks(x, n, h, cfg) for c, cfg in cfgs.items()}
+    for mod, name in ((vdec, "decode_vertical_plain"),
+                      (vdec, "decode_vertical_slots_plain"),
+                      (rice_unpack, "rice_unpack_words_plain"),
+                      (rice_pack, "rice_pack_codes_plain"),
+                      (reconstruct, "reconstruct_plain"),
+                      (predict, "reconstruct_lpc"), (predict, "chosen_residuals"),
+                      (ragged, "pad_payload"), (ragged, "stage_vertical")):
+        monkeypatch.setattr(mod, name, _refuse)
+    for coder, cfg in cfgs.items():
+        enc = encode.encode_blocks(*(t.to(cuda) for t in (x, n, h)), cfg)
+        _same(enc, cpu[coder])
+        args = (enc.k, n.to(cuda), enc.predictor, enc.table_idx, h.to(cuda),
+                tables, L, True)
+        counted = (rice_unpack.rice_unpack_words, vdec.decode_vertical_slots,
+                   reconstruct.reconstruct)
+        for fn in counted:
+            fn.launches = 0
+        out = decode.decode_blocks(enc.payload, *args, coder=coder)
+        vert = int(coder == "vertical")
+        assert [fn.launches for fn in counted] == [1 - vert, vert, 1]
+        valid = torch.arange(L)[None, :] < n[:, None]
+        assert torch.equal(out.cpu(), torch.where(valid, x, 0))
+        mesh = [cuda, cuda]
+        _same(encode_blocks_sharded(*(t.to(cuda) for t in (x, n, h)), cfg, mesh),
+              enc)
+        assert torch.equal(
+            decode_blocks_sharded(enc.payload, *args[:-2], L, True, mesh,
+                                  coder=coder), out)
+    z = to_i32(rice.zigzag(x.to(cuda)))
+    k = (torch.arange(z.shape[0], device=cuda) % 31).to(torch.int32)
+    valid = torch.arange(L, device=cuda)[None, :] < n.to(cuda)[:, None]
+    payload, _ = kernels.pack(*_codes(z, k, valid), L)
+    rows = torch.cat([payload, torch.zeros((payload.shape[0], 2), dtype=torch.int32,
+                                           device=cuda)], 1)
+    got = kernels.unpack(rows, k, n.to(cuda), L)
+    assert torch.equal(got, torch.where(valid, z, 0))

@@ -27,7 +27,7 @@ from dctpu.kernels.vdec_pallas import decode_vertical_mega
 from dctpu.kernels.vertical_xla import decode_vertical as ref_decode_vertical
 from dctpu.kernels.vertical_xla import encode_vertical as ref_encode_vertical
 from dctpu_torch.constants import sync_words
-from dctpu_torch.kernels import pack, ragged, unpack, vdec
+from dctpu_torch.kernels import ragged, rice_pack, rice_unpack, vdec
 
 
 def _rice_inputs(L, B=8):
@@ -47,7 +47,7 @@ def _rice_inputs(L, B=8):
 
 def _rice_words(L):
     z, k, n = _rice_inputs(L)
-    payload, bit_len = pack.rice_pack(
+    payload, bit_len = rice_pack.rice_pack(
         torch.from_numpy(z.view(np.int32)), torch.from_numpy(k),
         torch.from_numpy(n), L,
     )
@@ -68,7 +68,7 @@ def test_k5b_words_twin_matches_pallas_and_scan(L):
     z_scan = np.asarray(unpack_scan(staged, kj, nj, L, ub))
 
     words, start, count = scatter_blocks(flat, wc, seed=L)
-    got = unpack.rice_unpack_words(
+    got = rice_unpack.rice_unpack_words(
         words, start, count, torch.from_numpy(k), torch.from_numpy(n), L
     )
     assert got.dtype == torch.int32 and got.shape == (len(n), L)
@@ -90,15 +90,15 @@ def test_k5b_words_read_nothing_past_count(L):
     count[2] = wc[2] // 2
     count[5] = 0
     kt, nt = torch.from_numpy(k), torch.from_numpy(n)
-    got = unpack.rice_unpack_words(words, start, count, kt, nt, L)
-    rows = ragged.pad_payload(words, start, count, unpack.row_words(L))
-    assert torch.equal(got, unpack.unpack(rows, kt, nt, L))
+    got = rice_unpack.rice_unpack_words(words, start, count, kt, nt, L)
+    rows = ragged.pad_payload(words, start, count, rice_unpack.row_words(L))
+    assert torch.equal(got, rice_unpack.unpack(rows, kt, nt, L))
     past = ragged.segment_index(start + count, wc - count + 3)
     words[past] = -1
-    assert torch.equal(unpack.rice_unpack_words(words, start, count, kt, nt, L), got)
+    assert torch.equal(rice_unpack.rice_unpack_words(words, start, count, kt, nt, L), got)
     # the uncut blocks still decode to their samples
-    want = unpack.unpack(ragged.pad_payload(flat, torch.cumsum(wc, 0) - wc, wc,
-                                            unpack.row_words(L)), kt, nt, L)
+    want = rice_unpack.unpack(ragged.pad_payload(flat, torch.cumsum(wc, 0) - wc, wc,
+                                            rice_unpack.row_words(L)), kt, nt, L)
     for i in (1, 3, 4, 6, 7):
         assert torch.equal(got[i], want[i])
 

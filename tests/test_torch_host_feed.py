@@ -52,9 +52,15 @@ def _dispatch(monkeypatch, streams, L):
     return api.build_blocks(streams, L), taken
 
 
+# a small switch keeps the dispatch tests' corpora small: the measured
+# switch (131072 samples) would need streams of hundreds of MiB
+SMALL_SWITCH = 1536
+
+
 def test_build_blocks_dispatches_flat_path(monkeypatch):
     """Below a mean of _FLAT_PATH_MAX_MEAN_LEN samples per stream,
     build_blocks takes the flat path: the reference's arrays."""
+    monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", SMALL_SWITCH)
     rng = np.random.default_rng(4)
     streams = _corpus(rng, 300, api._FLAT_PATH_MAX_MEAN_LEN)
     got, taken = _dispatch(monkeypatch, streams, 128)
@@ -66,6 +72,7 @@ def test_build_blocks_dispatches_loop_for_long_streams(monkeypatch):
     """From a mean of _FLAT_PATH_MAX_MEAN_LEN samples per stream on, and
     for no streams, build_blocks takes the per-stream loop, whatever the
     stream count: the reference's arrays."""
+    monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", SMALL_SWITCH)
     rng = np.random.default_rng(6)
     for n_streams in (12, 300):
         streams = _corpus(rng, n_streams, 3 * api._FLAT_PATH_MAX_MEAN_LEN)

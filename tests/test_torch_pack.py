@@ -1,7 +1,7 @@
 """K5a's and K5b's plain twins vs the JAX reference's RICE packers.
 
-K5a (``pack.rice_pack`` on CPU tensors) is held against ``pack_pallas``
-in interpret mode and the XLA ``pack_scan``; K5b (``unpack.rice_unpack_words``
+K5a (``rice_pack.rice_pack`` on CPU tensors) is held against ``pack_pallas``
+in interpret mode and the XLA ``pack_scan``; K5b (``rice_unpack.rice_unpack_words``
 on the frame's compact words) against ``unpack_pallas`` and
 ``unpack_scan`` on the reference's ``stage_rice_scan`` rows of the same
 disk words. Tolerance: exact.
@@ -23,7 +23,7 @@ from dctpu.kernels.unpack_scan import (
     stage_rice_scan,
     unpack_scan,
 )
-from dctpu_torch.kernels import pack, unpack
+from dctpu_torch.kernels import rice_pack, rice_unpack
 
 K_CASES = ("0", "5", "27", "mixed")
 
@@ -57,7 +57,7 @@ def _reference_pack(z, k, n, L):
 
 
 def _port_pack(z, k, n, L):
-    return pack.rice_pack(
+    return rice_pack.rice_pack(
         torch.from_numpy(z.view(np.int32)), torch.from_numpy(k),
         torch.from_numpy(n), L,
     )
@@ -92,7 +92,7 @@ def test_k5b_twin_matches_pallas_and_scan(L, k_case):
     z_pal = np.asarray(unpack_pallas(staged, kj, nj, L, ub, interpret=True))
     z_scan = np.asarray(unpack_scan(staged, kj, nj, L, ub))
 
-    got = unpack.rice_unpack_words(
+    got = rice_unpack.rice_unpack_words(
         torch.from_numpy(flat.view(np.int32)), torch.from_numpy(off[:-1]),
         torch.from_numpy(wc), torch.from_numpy(k), torch.from_numpy(n), L,
     ).numpy().view(np.uint32)

@@ -1,6 +1,6 @@
 """K5a's x form and K9's disk-order planes vs the JAX reference.
 
-K5a's x form (``pack.rice_pack_rows`` on CPU tensors, its plain twin) is
+K5a's x form (``rice_pack.rice_pack_rows`` on CPU tensors, its plain twin) is
 held against the reference's RICE ``emit_blocks`` (backend "xla") with
 every candidate chosen block by block, and against the z form's twin on
 each candidate's zigzag values. K9 (``transpose.bit_planes32``, its twin)
@@ -25,7 +25,7 @@ from dctpu.kernels.vertical_xla import bit_transpose32 as ref_bit_transpose32
 from dctpu.kernels.vertical_xla import encode_vertical as ref_encode_vertical
 from dctpu_torch.codec import encode
 from dctpu_torch.config import DEFAULT_LPC_TABLES, from_reference
-from dctpu_torch.kernels import pack, transpose, vemit
+from dctpu_torch.kernels import rice_pack, transpose, vemit
 from tests.test_torch_exc_transpose import _words
 from tests.test_torch_vemit import WRAP, _emit_inputs, _x_inputs
 
@@ -57,9 +57,9 @@ def test_rows_x_form_matches_reference(rng, L):
     )
     cfg = from_reference(dataclasses.asdict(ref_cfg))
     xt, ht, nt, ct, kt = (torch.from_numpy(a) for a in (x, h, n, choice, k))
-    p, bl = pack.rice_pack_rows(xt, ht, nt, ct, kt, cfg)
+    p, bl = rice_pack.rice_pack_rows(xt, ht, nt, ct, kt, cfg)
     assert p.dtype == torch.int32 and bl.dtype == torch.int64
-    assert p.shape == (x.shape[0], pack.padded_words(L))
+    assert p.shape == (x.shape[0], rice_pack.padded_words(L))
     assert np.array_equal(p.numpy().view(np.uint32), np.asarray(enc.payload))
     assert np.array_equal(bl.numpy(), np.asarray(enc.bit_len))
     assert bl[7] == 48 * n[7]  # a random row at k = 7: every codeword escapes
@@ -75,9 +75,9 @@ def test_rows_x_form_equals_z_form(rng, L):
     ref_cfg, x, h, n, choice, k = _rice_inputs(rng, L)
     cfg = from_reference(dataclasses.asdict(ref_cfg))
     xt, ht, nt, ct, kt = (torch.from_numpy(a) for a in (x, h, n, choice, k))
-    p, bl = pack.rice_pack_rows(xt, ht, nt, ct, kt, cfg)
+    p, bl = rice_pack.rice_pack_rows(xt, ht, nt, ct, kt, cfg)
     for ci in range(len(cfg.candidates())):
-        pz, blz = pack.rice_pack(encode.candidate_z(xt, ht, cfg, ci), kt, nt, L)
+        pz, blz = rice_pack.rice_pack(encode.candidate_z(xt, ht, cfg, ci), kt, nt, L)
         rows = ct == ci
         assert rows.any()
         assert torch.equal(p[rows], pz[rows]) and torch.equal(bl[rows], blz[rows])

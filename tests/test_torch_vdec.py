@@ -19,8 +19,8 @@ from dctpu.kernels.vertical_xla import encode_vertical as ref_encode_vertical
 from dctpu_torch.codec import rice
 from dctpu_torch.constants import subs_per_block, sync_words
 from dctpu_torch.kernels import vdec
-from dctpu_torch.kernels.pack import pack
-from dctpu_torch.kernels.unpack import unpack
+from dctpu_torch.kernels.rice_pack import pack_plain
+from dctpu_torch.kernels.rice_unpack import unpack
 from dctpu_torch.kernels.vertical import parse_sync
 
 
@@ -79,7 +79,7 @@ def test_rice_pack_unpack_match_reference(rng, L):
 
     zt = torch.from_numpy(z.view(np.int32))
     code, length = rice.codewords(zt, torch.from_numpy(k)[:, None])
-    p, bl = pack(code, length, torch.from_numpy(valid), L)
+    p, bl = pack_plain(code, length, torch.from_numpy(valid), L)
     assert np.array_equal(bl.numpy(), np.asarray(bl_ref))
     assert np.array_equal(p.numpy().view(np.uint32), np.asarray(p_ref))
 
