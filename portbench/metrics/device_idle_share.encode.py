@@ -1,0 +1,7 @@
+"""Share of the encodes' wall time with nothing running on the device, %."""
+
+from portbench.readers import idle_share
+
+
+def read(run):
+    return idle_share(run, "encode")
