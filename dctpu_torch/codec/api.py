@@ -25,13 +25,15 @@ the CPU. The entries named ``host_*`` are the host numpy work around the
 device stages, on the host clock on every device: ``host_build_blocks``
 and ``host_frame_assembly`` of an encode, ``host_block_table`` (the
 block table's check and word offsets) and ``host_split_streams`` of a
-decode.
+decode, ``host_flatten`` of :func:`decompress_flat`. While a
+``torch.profiler`` session records, every stage, the steps inside the
+host stages and each host read of device results are ranges of the
+profiler's own (``dctpu_torch/trace.py``), whether or not ``stage_ms`` is
+given.
 """
 
 from __future__ import annotations
 
-import contextlib
-import time
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -56,6 +58,7 @@ from dctpu_torch.kernels.compact import (
 )
 from dctpu_torch.kernels.rice_pack import padded_words
 from dctpu_torch.kernels.vdec import raise_if_bad
+from dctpu_torch.trace import Stages, span
 
 DEFAULT_CHUNK_BLOCKS = 2048  # the reference's, and the sharded paths' default
 # The default pass's bound on device memory (range_blocks): a range may take
@@ -94,9 +97,12 @@ def build_blocks(
     and :func:`build_blocks_loop` for longer ones, where the concatenation
     costs more than the per-stream copies save. The reference picks the
     flat path from 256 streams on, by its own host's timings."""
-    lens = np.fromiter((np.asarray(s).size for s in streams), np.int64, len(streams))
-    if takes_flat_path(lens):
-        flat = np.concatenate([np.asarray(s, np.int32).ravel() for s in streams])
+    with span("feed.gather"):
+        lens = np.fromiter((np.asarray(s).size for s in streams), np.int64,
+                           len(streams))
+        flat = (np.concatenate([np.asarray(s, np.int32).ravel() for s in streams])
+                if takes_flat_path(lens) else None)
+    if flat is not None:
         return build_blocks_flat(flat, lens, block_len)
     return build_blocks_loop(streams, block_len)
 
@@ -111,28 +117,29 @@ def build_blocks_loop(
     streams: Sequence[np.ndarray], block_len: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """:func:`build_blocks` by one copy per stream."""
-    L = block_len
-    lens = [int(np.asarray(s).size) for s in streams]
-    nb, first = plan_blocks(lens, L)
-    B = int(nb.sum())
-    x = np.zeros((B, L), dtype=np.int32)
-    n = np.zeros(B, dtype=np.int32)
-    hist = np.zeros((B, HISTORY_LEN), dtype=np.int32)
-    for si, s in enumerate(streams):
-        s = np.asarray(s, dtype=np.int32)
-        ns, k, f = s.size, int(nb[si]), int(first[si])
-        if k == 0:
-            continue
-        buf = np.zeros(k * L, dtype=np.int32)
-        buf[:ns] = s
-        x[f : f + k] = buf.reshape(k, L)
-        n[f : f + k] = L
-        n[f + k - 1] = ns - (k - 1) * L
-        starts = np.arange(k, dtype=np.int64) * L
-        for j in range(HISTORY_LEN):
-            idx = starts - 1 - j
-            hist[f : f + k, j] = np.where(idx >= 0, s[np.maximum(idx, 0)], 0)
-    return x, n, hist, nb, first
+    with span("feed.loop"):
+        L = block_len
+        lens = [int(np.asarray(s).size) for s in streams]
+        nb, first = plan_blocks(lens, L)
+        B = int(nb.sum())
+        x = np.zeros((B, L), dtype=np.int32)
+        n = np.zeros(B, dtype=np.int32)
+        hist = np.zeros((B, HISTORY_LEN), dtype=np.int32)
+        for si, s in enumerate(streams):
+            s = np.asarray(s, dtype=np.int32)
+            ns, k, f = s.size, int(nb[si]), int(first[si])
+            if k == 0:
+                continue
+            buf = np.zeros(k * L, dtype=np.int32)
+            buf[:ns] = s
+            x[f : f + k] = buf.reshape(k, L)
+            n[f : f + k] = L
+            n[f + k - 1] = ns - (k - 1) * L
+            starts = np.arange(k, dtype=np.int64) * L
+            for j in range(HISTORY_LEN):
+                idx = starts - 1 - j
+                hist[f : f + k, j] = np.where(idx >= 0, s[np.maximum(idx, 0)], 0)
+        return x, n, hist, nb, first
 
 
 def _flat_plan(flat, lens, block_len):
@@ -157,8 +164,10 @@ def build_blocks_flat(
 
     flat: all streams' samples concatenated (int32); lens: per-stream
     sample counts."""
-    flat, lens, nb, first, sstart = _flat_plan(flat, lens, block_len)
-    x, n, hist = native.build_blocks(flat, sstart, first, block_len, int(nb.sum()))
+    with span("feed.native"):
+        flat, lens, nb, first, sstart = _flat_plan(flat, lens, block_len)
+        x, n, hist = native.build_blocks(flat, sstart, first, block_len,
+                                         int(nb.sum()))
     return x, n, hist, nb, first
 
 
@@ -276,43 +285,6 @@ def shard_ranges(b0: int, b1: int, ndev: int) -> List[Tuple[int, int, int]]:
     ]
 
 
-class _Stages:
-    """Adds per-stage milliseconds into ``out`` (a dict) when one is given;
-    CUDA events are recorded on the current stream of ``device``."""
-
-    def __init__(self, out, device):
-        self.out = out
-        self.device = torch.device(device)
-        self.events = []
-
-    @contextlib.contextmanager
-    def __call__(self, name: str):
-        if self.out is None:
-            yield
-            return
-        if self.device.type == "cuda":
-            stream = torch.cuda.current_stream(self.device)
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record(stream)
-            yield
-            end.record(stream)
-            self.events.append((name, start, end))
-            return
-        t0 = time.perf_counter()
-        yield
-        self._add(name, (time.perf_counter() - t0) * 1e3)
-
-    def _add(self, name, ms):
-        self.out[name] = self.out.get(name, 0.0) + ms
-
-    def finish(self):
-        for name, start, end in self.events:
-            end.synchronize()
-            self._add(name, start.elapsed_time(end))
-        self.events = []
-
-
 # ------------------------------------------------------------------ encode
 
 
@@ -323,7 +295,7 @@ def select_range(x_h, n_h, hist_h, cfg: CodecConfig, device, backend=None,
     tensors (x, n, hist, choice, coder, k) and reads nothing back, so that
     ranges on several devices can all be launched before the first
     waits."""
-    stage = stage or _Stages(None, device)
+    stage = stage or Stages(None, device)
     with stage("upload"):
         x, n, hist = (torch.from_numpy(a).to(device) for a in (x_h, n_h, hist_h))
     with stage("select"):
@@ -345,10 +317,11 @@ def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
     Returns host arrays (choice, coder, k, bit_len, words uint32)."""
     x, n, hist, choice, coder, kk = sel
     device = x.device
-    stage = stage or _Stages(None, device)
+    stage = stage or Stages(None, device)
     L = cfg.block_len
     B = x.shape[0]
-    coder_h = coder.cpu().numpy()
+    with span("sync.coders"):
+        coder_h = coder.cpu().numpy()
 
     bit_len = torch.zeros(B, dtype=torch.int64, device=device)
     # each group's rows in block order, the groups in CP's order
@@ -371,7 +344,10 @@ def emit_range(sel, cfg: CodecConfig, backend=None, stage=None):
         buf, _ = compact_range_flagged(rows[0], rows[1], coder, bit_len, L)
     with stage("download"):
         words_h = host_words(buf)
-        out = [t.cpu().numpy() for t in (choice, kk, bit_len)]
+        out = []
+        for what, t in (("choice", choice), ("k", kk), ("bit_len", bit_len)):
+            with span(f"sync.{what}"):
+                out.append(t.cpu().numpy())
     return out[0], coder_h, out[1], out[2], words_h
 
 
@@ -412,10 +388,10 @@ def encode_frame(
     if cfg.coder not in ("adaptive", *_CODER_ID):
         raise ValueError(f"unknown coder {cfg.coder!r}")
     L = cfg.block_len
-    host = _Stages(stage_ms, "cpu")
+    host = Stages(stage_ms, "cpu")
     with host("host_build_blocks"):
         x_h, n_h, hist_h, nb, first = build_blocks(streams, L)
-    stages = [_Stages(stage_ms, d) for d in devices]
+    stages = [Stages(stage_ms, d) for d in devices]
     chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     parts = []
     for c0, c1 in block_ranges(x_h.shape[0], chunk_blocks):
@@ -433,20 +409,23 @@ def encode_frame(
         stage.finish()
 
     with host("host_frame_assembly"):
-        choice, coder, kk, bit_len, words = (_cat(col) for col in zip(*parts))
-        pred_map, ti_map = candidate_maps(cfg)
-        blocks = BlockHeaders(
-            predictor=pred_map[choice],
-            k=kk.astype(np.uint8),
-            n=n_h.astype(np.uint16),
-            bit_len=bit_len.astype(np.uint32),
-            table_idx=ti_map[choice],
-            history=hist_h,
-            coder=coder.astype(np.uint8),
-        )
+        with span("assembly.columns"):
+            choice, coder, kk, bit_len, words = (_cat(col) for col in zip(*parts))
+            pred_map, ti_map = candidate_maps(cfg)
+            blocks = BlockHeaders(
+                predictor=pred_map[choice],
+                k=kk.astype(np.uint8),
+                n=n_h.astype(np.uint16),
+                bit_len=bit_len.astype(np.uint32),
+                table_idx=ti_map[choice],
+                history=hist_h,
+                coder=coder.astype(np.uint8),
+            )
+        with span("assembly.stream_dir"):
+            sdir = _stream_metas(streams, stream_ids, cadences, nb, first)
         frame = Frame(
             block_len=L,
-            streams=_stream_metas(streams, stream_ids, cadences, nb, first),
+            streams=sdir,
             blocks=blocks,
             tables=cfg.lpc_tables,
             payload_words=words,
@@ -502,7 +481,7 @@ def decompress(
     other name. ``chunk_blocks`` bounds the blocks per pass (default: one
     pass on the CPU, :func:`range_blocks` on a card)."""
     xs = decode_blocks_array(frame, [device], stage_ms, chunk_blocks, backend)
-    with _Stages(stage_ms, "cpu")("host_split_streams"):
+    with Stages(stage_ms, "cpu")("host_split_streams"):
         out = split_streams(xs, frame.streams)
     return out
 
@@ -528,14 +507,15 @@ def decompress_flat(
     stream's last is full, so the blocks' valid prefixes, concatenated, are
     the streams' samples, with no per-stream split."""
     xs = decode_blocks_array(frame, [device], stage_ms, chunk_blocks, backend)
-    L = frame.block_len
-    n = frame.blocks.n.astype(np.int64)
-    mask = np.arange(L, dtype=np.int64)[None, :] < n[:, None]
-    flat = xs.reshape(-1)[mask.reshape(-1)]
-    if isinstance(frame.streams, StreamDir):
-        lens = frame.streams.num_samples.astype(np.int64)
-    else:
-        lens = np.array([s.num_samples for s in frame.streams], np.int64)
+    with Stages(stage_ms, "cpu")("host_flatten"):
+        L = frame.block_len
+        n = frame.blocks.n.astype(np.int64)
+        mask = np.arange(L, dtype=np.int64)[None, :] < n[:, None]
+        flat = xs.reshape(-1)[mask.reshape(-1)]
+        if isinstance(frame.streams, StreamDir):
+            lens = frame.streams.num_samples.astype(np.int64)
+        else:
+            lens = np.array([s.num_samples for s in frame.streams], np.int64)
     return flat, lens
 
 
@@ -579,7 +559,7 @@ def decode_range(
     ranges on several devices all run at once. coeffs: the frame's LPC
     tables as [T, 4] int32 on the device."""
     device = coeffs.device
-    stage = stage or _Stages(None, device)
+    stage = stage or Stages(None, device)
     L = frame.block_len
     hb = frame.blocks
     w0, w1 = int(off_h[b0]), int(off_h[b1])
@@ -644,12 +624,12 @@ def decode_blocks_array(
     devices."""
     L = frame.block_len
     B = frame.blocks.num_blocks
-    with _Stages(stage_ms, "cpu")("host_block_table"):
+    with Stages(stage_ms, "cpu")("host_block_table"):
         _check_block_table(frame)
         off_h = frame.blocks.word_offsets(L)
     tables = [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]]
     coeffs = [torch.tensor(tables, dtype=torch.int32, device=d) for d in devices]
-    stages = [_Stages(stage_ms, d) for d in devices]
+    stages = [Stages(stage_ms, d) for d in devices]
     chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     ranges = block_ranges(B, chunk_blocks)
     out = None if len(ranges) == 1 and len(devices) == 1 else np.empty((B, L), np.int32)
@@ -660,7 +640,7 @@ def decode_blocks_array(
         for _, bad in res:
             raise_if_bad(bad)
         for (x, _), (i, a, b) in zip(res, shards):
-            with stages[i]("download"):
+            with stages[i]("download"), span("sync.download"):
                 if out is None:
                     out = x.cpu().numpy()
                 else:  # straight into the output, no second host copy

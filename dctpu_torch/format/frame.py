@@ -9,7 +9,10 @@ Replaces the reference C codec's serial header read/write (SURVEY.md §2.1
 "Frame/container format"; reference unavailable — see SURVEY.md §0).
 
 A copy of the module of the same path in ``dctpu``: the port never imports
-``dctpu``, whose package import pulls in jax.
+``dctpu``, whose package import pulls in jax. Its steps are spans
+(``dctpu_torch/trace.py``): ``write_frame`` with ``.tables``, ``.payload``,
+``.crc`` and ``.join``, ``read_frame`` with ``.sections``, ``.crc``,
+``.tables`` and ``.payload``.
 """
 
 from __future__ import annotations
@@ -31,6 +34,7 @@ from dctpu_torch.constants import (
     VERSION,
 )
 from dctpu_torch.format.crc import crc32
+from dctpu_torch.trace import span
 
 # Structured dtypes mirror docs/FORMAT.md §5 exactly (little-endian).
 STREAM_DIR_DTYPE = np.dtype(
@@ -205,139 +209,150 @@ def plan_blocks(stream_lengths: Sequence[int], block_len: int) -> Tuple[np.ndarr
 
 
 def write_frame(frame: Frame) -> bytes:
-    nstreams = len(frame.streams)
-    nblocks = frame.blocks.num_blocks
+    with span("write_frame"):
+        nstreams = len(frame.streams)
+        nblocks = frame.blocks.num_blocks
 
-    if isinstance(frame.streams, StreamDir):
-        sdir = frame.streams.to_records()  # column moves, no per-stream work
-    else:
-        sdir = np.zeros(nstreams, dtype=STREAM_DIR_DTYPE)
-        for i, s in enumerate(frame.streams):
-            sdir[i] = (s.stream_id, s.cadence_s, s.num_blocks,
-                       s.num_samples, s.first_block, 0)
+        with span("write_frame.tables"):
+            if isinstance(frame.streams, StreamDir):
+                sdir = frame.streams.to_records()  # column moves, no per-stream work
+            else:
+                sdir = np.zeros(nstreams, dtype=STREAM_DIR_DTYPE)
+                for i, s in enumerate(frame.streams):
+                    sdir[i] = (s.stream_id, s.cadence_s, s.num_blocks,
+                               s.num_samples, s.first_block, 0)
 
-    btab = np.zeros(nblocks, dtype=BLOCK_HEADER_DTYPE)
-    btab["predictor"] = frame.blocks.predictor
-    btab["k"] = frame.blocks.k
-    btab["n"] = frame.blocks.n
-    btab["bit_len"] = frame.blocks.bit_len
-    btab["table_idx"] = frame.blocks.table_idx
-    btab["coder"] = frame.blocks.coder_arr()
-    btab["history"] = frame.blocks.history
+            btab = np.zeros(nblocks, dtype=BLOCK_HEADER_DTYPE)
+            btab["predictor"] = frame.blocks.predictor
+            btab["k"] = frame.blocks.k
+            btab["n"] = frame.blocks.n
+            btab["bit_len"] = frame.blocks.bit_len
+            btab["table_idx"] = frame.blocks.table_idx
+            btab["coder"] = frame.blocks.coder_arr()
+            btab["history"] = frame.blocks.history
 
-    tparts = [_TABLE_HEADER.pack(len(frame.tables), 0)]
-    for t in frame.tables:
-        tparts.append(_TABLE_ENTRY.pack(t.order, *t.coeffs))
-    tables_b = b"".join(tparts)
+            tparts = [_TABLE_HEADER.pack(len(frame.tables), 0)]
+            for t in frame.tables:
+                tparts.append(_TABLE_ENTRY.pack(t.order, *t.coeffs))
+            tables_b = b"".join(tparts)
 
-    dir_b = sdir.tobytes()
-    btab_b = btab.tobytes()
-    payload_b = np.ascontiguousarray(frame.payload_words, dtype="<u4").tobytes()
+            dir_b = sdir.tobytes()
+            btab_b = btab.tobytes()
+        with span("write_frame.payload"):
+            payload_b = np.ascontiguousarray(frame.payload_words, dtype="<u4").tobytes()
 
-    off_dir = FILE_HEADER_BYTES
-    off_btab = off_dir + len(dir_b)
-    off_tables = off_btab + len(btab_b)
-    off_payload = off_tables + len(tables_b)
+        off_dir = FILE_HEADER_BYTES
+        off_btab = off_dir + len(dir_b)
+        off_tables = off_btab + len(btab_b)
+        off_payload = off_tables + len(tables_b)
 
-    header = _FILE_HEADER.pack(
-        MAGIC,
-        VERSION,
-        0,
-        frame.block_len,
-        nstreams,
-        nblocks,
-        off_dir,
-        off_btab,
-        off_tables,
-        off_payload,
-        len(payload_b),
-    )
-    trailer = _TRAILER.pack(
-        crc32(dir_b), crc32(btab_b), crc32(tables_b), crc32(payload_b), crc32(header)
-    )
-    return b"".join([header, dir_b, btab_b, tables_b, payload_b, trailer])
+        header = _FILE_HEADER.pack(
+            MAGIC,
+            VERSION,
+            0,
+            frame.block_len,
+            nstreams,
+            nblocks,
+            off_dir,
+            off_btab,
+            off_tables,
+            off_payload,
+            len(payload_b),
+        )
+        with span("write_frame.crc"):
+            trailer = _TRAILER.pack(
+                crc32(dir_b), crc32(btab_b), crc32(tables_b), crc32(payload_b),
+                crc32(header),
+            )
+        with span("write_frame.join"):
+            return b"".join([header, dir_b, btab_b, tables_b, payload_b, trailer])
 
 
 def read_frame(data: bytes, verify_crc: bool = True) -> Frame:
-    # Malformed input of any shape (truncation, garbage offsets/counts) must
-    # raise ValueError, never struct.error/IndexError — fuzzed in
-    # tests/test_format.py.
-    if len(data) < FILE_HEADER_BYTES:
-        raise ValueError("truncated DCF1 frame: short header")
-    (
-        magic,
-        version,
-        _flags,
-        block_len,
-        nstreams,
-        nblocks,
-        off_dir,
-        off_btab,
-        off_tables,
-        off_payload,
-        payload_bytes,
-    ) = _FILE_HEADER.unpack_from(data, 0)
-    if magic != MAGIC:
-        raise ValueError("bad DCF1 magic")
-    if version != VERSION:
-        raise ValueError(f"unsupported DCF version {version}")
+    with span("read_frame"):
+        # Malformed input of any shape (truncation, garbage offsets/counts) must
+        # raise ValueError, never struct.error/IndexError — fuzzed in
+        # tests/test_format.py.
+        if len(data) < FILE_HEADER_BYTES:
+            raise ValueError("truncated DCF1 frame: short header")
+        (
+            magic,
+            version,
+            _flags,
+            block_len,
+            nstreams,
+            nblocks,
+            off_dir,
+            off_btab,
+            off_tables,
+            off_payload,
+            payload_bytes,
+        ) = _FILE_HEADER.unpack_from(data, 0)
+        if magic != MAGIC:
+            raise ValueError("bad DCF1 magic")
+        if version != VERSION:
+            raise ValueError(f"unsupported DCF version {version}")
 
-    def _section(off: int, size: int, name: str) -> bytes:
-        if off < 0 or size < 0 or off + size > len(data):
-            raise ValueError(f"truncated DCF1 frame: {name} section")
-        return data[off : off + size]
+        def _section(off: int, size: int, name: str) -> bytes:
+            if off < 0 or size < 0 or off + size > len(data):
+                raise ValueError(f"truncated DCF1 frame: {name} section")
+            return data[off : off + size]
 
-    dir_b = _section(off_dir, nstreams * STREAM_DIR_BYTES, "directory")
-    btab_b = _section(off_btab, nblocks * BLOCK_HEADER_BYTES, "block_table")
-    _section(off_tables, _TABLE_HEADER.size, "tables header")
-    ntables, _ = _TABLE_HEADER.unpack_from(data, off_tables)
-    tables_b = _section(
-        off_tables, _TABLE_HEADER.size + ntables * TABLE_ENTRY_BYTES, "tables"
-    )
-    payload_b = _section(off_payload, payload_bytes, "payload")
+        with span("read_frame.sections"):
+            dir_b = _section(off_dir, nstreams * STREAM_DIR_BYTES, "directory")
+            btab_b = _section(off_btab, nblocks * BLOCK_HEADER_BYTES, "block_table")
+            _section(off_tables, _TABLE_HEADER.size, "tables header")
+            ntables, _ = _TABLE_HEADER.unpack_from(data, off_tables)
+            tables_b = _section(
+                off_tables, _TABLE_HEADER.size + ntables * TABLE_ENTRY_BYTES, "tables"
+            )
+            payload_b = _section(off_payload, payload_bytes, "payload")
 
-    if verify_crc:
-        _section(off_payload + payload_bytes, _TRAILER.size, "trailer")
-        c_dir, c_btab, c_tab, c_pay, c_hdr = _TRAILER.unpack_from(
-            data, off_payload + payload_bytes
+        if verify_crc:
+            _section(off_payload + payload_bytes, _TRAILER.size, "trailer")
+            c_dir, c_btab, c_tab, c_pay, c_hdr = _TRAILER.unpack_from(
+                data, off_payload + payload_bytes
+            )
+            with span("read_frame.crc"):
+                checks = [
+                    (c_hdr, crc32(data[:FILE_HEADER_BYTES]), "header"),
+                    (c_dir, crc32(dir_b), "directory"),
+                    (c_btab, crc32(btab_b), "block_table"),
+                    (c_tab, crc32(tables_b), "tables"),
+                    (c_pay, crc32(payload_b), "payload"),
+                ]
+            for want, got, name in checks:
+                if want != got:
+                    raise ValueError(f"CRC mismatch in {name} section")
+
+        with span("read_frame.tables"):
+            sdir = np.frombuffer(dir_b, dtype=STREAM_DIR_DTYPE)
+            streams = StreamDir.from_records(sdir)  # no per-stream objects (config 5)
+
+            btab = np.frombuffer(btab_b, dtype=BLOCK_HEADER_DTYPE)
+            blocks = BlockHeaders(
+                predictor=btab["predictor"].copy(),
+                k=btab["k"].copy(),
+                n=btab["n"].copy(),
+                bit_len=btab["bit_len"].copy(),
+                table_idx=btab["table_idx"].copy(),
+                history=btab["history"].copy(),
+                coder=btab["coder"].copy(),
+            )
+
+            tables = []
+            toff = _TABLE_HEADER.size
+            for _ in range(ntables):
+                order, c0, c1, c2, c3 = _TABLE_ENTRY.unpack_from(tables_b, toff)
+                tables.append(LpcTable(order=order, coeffs=(c0, c1, c2, c3)))
+                toff += TABLE_ENTRY_BYTES
+
+        with span("read_frame.payload"):
+            payload_words = np.frombuffer(payload_b, dtype="<u4").copy()
+        return Frame(
+            block_len=block_len,
+            streams=streams,
+            blocks=blocks,
+            tables=tuple(tables),
+            payload_words=payload_words,
         )
-        checks = [
-            (c_hdr, crc32(data[:FILE_HEADER_BYTES]), "header"),
-            (c_dir, crc32(dir_b), "directory"),
-            (c_btab, crc32(btab_b), "block_table"),
-            (c_tab, crc32(tables_b), "tables"),
-            (c_pay, crc32(payload_b), "payload"),
-        ]
-        for want, got, name in checks:
-            if want != got:
-                raise ValueError(f"CRC mismatch in {name} section")
-
-    sdir = np.frombuffer(dir_b, dtype=STREAM_DIR_DTYPE)
-    streams = StreamDir.from_records(sdir)  # no per-stream objects (config 5)
-
-    btab = np.frombuffer(btab_b, dtype=BLOCK_HEADER_DTYPE)
-    blocks = BlockHeaders(
-        predictor=btab["predictor"].copy(),
-        k=btab["k"].copy(),
-        n=btab["n"].copy(),
-        bit_len=btab["bit_len"].copy(),
-        table_idx=btab["table_idx"].copy(),
-        history=btab["history"].copy(),
-        coder=btab["coder"].copy(),
-    )
-
-    tables = []
-    toff = _TABLE_HEADER.size
-    for _ in range(ntables):
-        order, c0, c1, c2, c3 = _TABLE_ENTRY.unpack_from(tables_b, toff)
-        tables.append(LpcTable(order=order, coeffs=(c0, c1, c2, c3)))
-        toff += TABLE_ENTRY_BYTES
-
-    payload_words = np.frombuffer(payload_b, dtype="<u4").copy()
-    return Frame(
-        block_len=block_len,
-        streams=streams,
-        blocks=blocks,
-        tables=tuple(tables),
-        payload_words=payload_words,
-    )

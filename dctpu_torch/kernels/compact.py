@@ -39,6 +39,7 @@ from dctpu_torch.constants import (
     sync_words,
 )
 from dctpu_torch.kernels import _build, ragged
+from dctpu_torch.trace import span
 
 MAX_BLOCK_LEN = 512 * SUB_BLOCK  # the copy scans at most 512 sub-blocks
 _BAD_TABLE, _BAD_ROW = 1, 2      # the kernel's flag bits
@@ -160,7 +161,9 @@ def compact_range_flagged(
         return torch.cat([words, words.new_zeros(1)]), wc
     wc, off, src, total = count_range(coder, bit_len.to(coder.device),
                                       block_len)
-    buf = torch.empty(int(total) + 1, dtype=torch.int32, device=coder.device)
+    with span("sync.total"):
+        nwords = int(total)
+    buf = torch.empty(nwords + 1, dtype=torch.int32, device=coder.device)
     launch_compact(rows_a, rows_b, src, coder, wc, off, buf, block_len)
     return buf, wc
 
@@ -210,7 +213,8 @@ def host_words(buf: torch.Tensor) -> np.ndarray:
     """:func:`compact_range_flagged`'s buf -> the words as a host uint32
     array, in one host read of words and flag together; raises ValueError
     where the flag is set."""
-    h = buf.cpu().numpy()
+    with span("sync.words"):
+        h = buf.cpu().numpy()
     raise_if_bad(int(h[-1]))
     return h[:-1].view(np.uint32)
 
@@ -227,7 +231,9 @@ def compact_range(
     the flag costs a host read of its own; the encode reads it with the
     words instead (:func:`compact_range_flagged`, :func:`host_words`)."""
     buf, wc = compact_range_flagged(rows_a, rows_b, coder, bit_len, block_len)
-    raise_if_bad(int(buf[-1]))
+    with span("sync.flag"):
+        flag = int(buf[-1])
+    raise_if_bad(flag)
     return buf[:-1], wc
 
 

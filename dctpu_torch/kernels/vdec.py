@@ -45,6 +45,7 @@ from dctpu_torch.kernels.vertical import (
     parse_sync,
     plane_word_counts,
 )
+from dctpu_torch.trace import span
 
 
 def decode_vertical_plain(
@@ -167,7 +168,11 @@ def decode_vertical_words(
 def raise_if_bad(bad) -> None:
     """One host read of :func:`launch_vdec_words`' flags (None: nothing to
     read) -> the twin's ValueError if a block's sync table was bad."""
-    if bad is not None and bool(bad.any()):
+    if bad is None:
+        return
+    with span("sync.flags"):
+        is_bad = bool(bad.any())
+    if is_bad:
         raise ValueError(ragged.BAD_VERTICAL_TABLE)
 
 
@@ -241,7 +246,8 @@ def launch_vdec_slots(payload: torch.Tensor, n: torch.Tensor, block_len: int,
 def raise_if_bad_slots(bad) -> None:
     """One host read of :func:`launch_vdec_slots`' flags -> the twin's
     ValueError for a flagged row."""
-    flags = bad.cpu()
+    with span("sync.flags"):
+        flags = bad.cpu()
     if bool((flags == 1).any()):
         raise ValueError(ragged.BAD_VERTICAL_TABLE)
     if bool(flags.any()):

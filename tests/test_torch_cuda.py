@@ -2,8 +2,9 @@
 the words forms of K4 and K5b, K5a's codes form, K4's slot form, and K9's
 disk-order planes) against their plain twins, on the card, the launches of
 the round trips and of the block-batch codec, and the sharded path over
-two shards of the card with the device guard of every launch, and the
-bench (``dctpu_torch.bench``) at 256 blocks.
+two shards of the card with the device guard of every launch, the
+bench (``dctpu_torch.bench``) at 256 blocks, and the program's spans
+(``dctpu_torch/trace.py``), which add no event on the device.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -14,6 +15,7 @@ missing, without tests/conftest.py (which imports it):
 
 import json
 import sys
+from collections import Counter
 
 import numpy as np
 import pytest
@@ -21,7 +23,7 @@ import torch
 
 import chip_smoke
 from chip_smoke import scatter_blocks
-from dctpu_torch import bench, kernels
+from dctpu_torch import bench, kernels, trace
 from dctpu_torch._bits import MASK32, to_i32
 from dctpu_torch.codec import api, decode, encode, predict, rice
 from dctpu_torch.config import DEFAULT_LPC_TABLES, CodecConfig, LpcTable
@@ -419,6 +421,65 @@ def test_round_trip_launches_on_card(cuda, coder, monkeypatch):
                                                groups - vert, groups - vert, 0, 1,
                                                1]
     assert groups == (2 if coder == "adaptive" else 1)
+
+
+def _profiled(fn):
+    """fn() under the profiler (CPU and CUDA): (its result, the CUDA-typed
+    events by name, the program's dctpu.sync.* spans)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    device, syncs = Counter(), []
+    for e in prof.profiler.kineto_results.events():
+        if "CUDA" in str(e.device_type()):
+            device[e.name()] += 1
+        elif e.name().startswith(trace.PREFIX + "sync."):
+            syncs.append(e.name())
+    return out, device, syncs
+
+
+@pytest.mark.parametrize("coder", ["adaptive", "rice", "vertical"])
+def test_spans_add_no_device_event_on_card(cuda, coder, monkeypatch):
+    """A traced headend-shaped round trip (meter-days of 96 reads at
+    L=128, decompress_flat) gives the device the same events, by name and
+    count, with the program's spans on and off; the spans' reads are the
+    card path's: 6 an encode range (the coders, CP's total, the words,
+    choice, k, bit_len), 1 or 2 a decode range (K4's flags when a
+    VERTICAL block is there, the samples), each one copy to the host."""
+    streams, ids, cads = synth_corpus(2000, 96, seed=23, cumulative_frac=0.25)
+    cfg = CodecConfig(block_len=128, coder=coder)
+
+    def encode_():
+        return write_frame(api.compress(streams, cfg, ids, cads, device=cuda,
+                                        stage_ms={}))
+
+    data = encode_()  # warm-up of both halves
+
+    def decode_():
+        return api.decompress_flat(read_frame(data), device=cuda, stage_ms={})
+
+    decode_()
+    vert = int((read_frame(data).blocks.coder_arr() == 1).any())
+    seen = {}
+    for on in (True, False):
+        if not on:
+            monkeypatch.setattr(trace, "recording", lambda: False)
+        got, enc_dev, enc_syncs = _profiled(encode_)
+        (flat, _), dec_dev, dec_syncs = _profiled(decode_)
+        assert got == data
+        np.testing.assert_array_equal(flat, np.concatenate(streams))
+        seen[on] = (enc_dev, dec_dev, len(enc_syncs), len(dec_syncs))
+    assert seen[True][:2] == seen[False][:2]
+    assert seen[False][2:] == (0, 0)
+    enc_dev, dec_dev, n_enc, n_dec = seen[True]
+    assert not any(name.startswith(trace.PREFIX) for name in enc_dev + dec_dev)
+    assert (n_enc, n_dec) == (6, 1 + vert)
+    assert vert == (coder != "rice")
+    to_host = [sum(v for k, v in dev.items() if k.startswith("Memcpy DtoH"))
+               for dev in (enc_dev, dec_dev)]
+    assert to_host == [n_enc, n_dec]
 
 
 @pytest.mark.parametrize("B, L", [

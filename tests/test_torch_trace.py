@@ -1,0 +1,168 @@
+"""The port's spans (``dctpu_torch/trace.py``) on the CPU: each step of a
+round trip is a ``dctpu.*`` range of ``torch.profiler`` inside its parent,
+nothing is opened while no profiler records, ``stage_ms`` keeps its keys,
+and tracing changes no byte of a frame."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from dctpu_torch import trace
+from dctpu_torch.codec import api
+from dctpu_torch.config import CodecConfig
+from dctpu_torch.corpus.synth import synth_corpus
+from dctpu_torch.format.frame import read_frame, write_frame
+
+CODERS = ("rice", "vertical", "adaptive")
+GROUP = {0: "rice", 1: "vertical"}
+# each span of a round trip and the span it lies in (None: none of the
+# program's); emit_* and decode_* are added per coder group
+ENCODE = {
+    "host_build_blocks": None, "upload": None, "select": None,
+    "sync.coders": None, "compact": None, "download": None,
+    "sync.words": "download", "sync.choice": "download", "sync.k": "download",
+    "sync.bit_len": "download", "host_frame_assembly": None,
+    "assembly.columns": "host_frame_assembly",
+    "assembly.stream_dir": "host_frame_assembly",
+    "write_frame": None, "write_frame.tables": "write_frame",
+    "write_frame.payload": "write_frame", "write_frame.crc": "write_frame",
+    "write_frame.join": "write_frame",
+}
+FEED = {"flat": {"feed.gather": "host_build_blocks",
+                 "feed.native": "host_build_blocks"},
+        "loop": {"feed.gather": "host_build_blocks",
+                 "feed.loop": "host_build_blocks"}}
+DECODE = {
+    "read_frame": None, "read_frame.sections": "read_frame",
+    "read_frame.crc": "read_frame", "read_frame.tables": "read_frame",
+    "read_frame.payload": "read_frame", "host_block_table": None,
+    "upload": None, "reconstruct": None, "download": None,
+    "sync.download": "download", "host_flatten": None,
+}
+# the reads of device results of one range on the CPU path: CP's total is
+# read on a card only, and K4's flags are checked by the CPU twin itself
+CPU_SYNCS = {"encode": 5, "decode": 1}
+
+
+@functools.lru_cache(maxsize=None)
+def _corpus():
+    return synth_corpus(4, 3000, seed=11)
+
+
+def _cfg(coder):
+    return CodecConfig(block_len=256, coder=coder)
+
+
+def _round_trip(coder, stage_ms=True, chunk_blocks=None):
+    """compress -> write_frame -> read_frame -> decompress_flat on the CPU:
+    (frame bytes, flat samples, encode stage_ms, decode stage_ms)."""
+    streams, ids, cads = _corpus()
+    enc, dec = ({}, {}) if stage_ms else (None, None)
+    frame = api.compress(streams, _cfg(coder), ids, cads, device="cpu",
+                         stage_ms=enc, chunk_blocks=chunk_blocks)
+    data = write_frame(frame)
+    flat, _ = api.decompress_flat(read_frame(data), device="cpu", stage_ms=dec,
+                                  chunk_blocks=chunk_blocks)
+    return data, flat, enc, dec
+
+
+def _traced(coder, **kw):
+    """The round trip under the profiler, and its dctpu.* ranges as
+    (name without the prefix, start, end), in order of start."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = _round_trip(coder, **kw)
+    spans = sorted(
+        (e.start_ns(), e.start_ns() + e.duration_ns(), e.name()[len(trace.PREFIX):])
+        for e in prof.profiler.kineto_results.events()
+        if e.name().startswith(trace.PREFIX))
+    return out, [(n, s, e) for s, e, n in spans]
+
+
+def _groups(data):
+    return sorted({GROUP[int(c)] for c in read_frame(data).blocks.coder_arr()})
+
+
+def _sides(spans):
+    """The spans up to write_frame's end (the encode) and after it."""
+    cut = max(e for n, _, e in spans if n == "write_frame")
+    return ([sp for sp in spans if sp[1] < cut], [sp for sp in spans if sp[1] >= cut])
+
+
+@pytest.mark.parametrize("stage_ms", [True, False], ids=["stage_ms", "no_stage_ms"])
+@pytest.mark.parametrize("feed", ["flat", "loop"])
+@pytest.mark.parametrize("coder", CODERS)
+def test_each_step_is_a_span_inside_its_parent(monkeypatch, coder, feed, stage_ms):
+    if feed == "loop":
+        monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", 0)
+    (data, _, _, _), spans = _traced(coder, stage_ms=stage_ms)
+    groups = _groups(data)
+    want = {"encode": {**ENCODE, **FEED[feed], **{f"emit_{g}": None for g in groups}},
+            "decode": {**DECODE, **{f"decode_{g}": None for g in groups}}}
+    if coder == "adaptive":
+        assert groups == ["rice", "vertical"]
+    for side, got in zip(("encode", "decode"), _sides(spans)):
+        names = [n for n, _, _ in got]
+        assert set(names) == set(want[side]), side
+        for name, s, e in got:
+            parent = want[side][name]
+            if parent is not None:
+                assert any(ps <= s and e <= pe for n, ps, pe in got if n == parent), name
+
+
+@pytest.mark.parametrize("coder", CODERS)
+def test_no_range_is_opened_while_no_profiler_records(monkeypatch, coder):
+    opened = []
+
+    def counting_range(name):
+        opened.append(name)
+        return torch._C._profiler._RecordFunctionFast(name)
+
+    monkeypatch.setattr(trace, "_range", counting_range)
+    plain = _round_trip(coder, stage_ms=False)
+    timed = _round_trip(coder, stage_ms=True)
+    assert opened == []
+    with profile(activities=[ProfilerActivity.CPU]):
+        _round_trip(coder, stage_ms=False)
+    assert "dctpu.write_frame" in opened and "dctpu.sync.download" in opened
+    assert plain[0] == timed[0]
+
+
+@pytest.mark.parametrize("coder", CODERS)
+def test_stage_ms_keeps_its_keys(coder):
+    streams, ids, cads = _corpus()
+    enc, dec, dec_flat = {}, {}, {}
+    frame = api.compress(streams, _cfg(coder), ids, cads, device="cpu", stage_ms=enc)
+    back = read_frame(write_frame(frame))
+    api.decompress(back, device="cpu", stage_ms=dec)
+    api.decompress_flat(back, device="cpu", stage_ms=dec_flat)
+    groups = _groups(write_frame(frame))
+    assert set(enc) == {"host_build_blocks", "upload", "select", "compact", "download",
+                        "host_frame_assembly", *(f"emit_{g}" for g in groups)}
+    assert set(dec) == {"host_block_table", "upload", "reconstruct", "download",
+                        "host_split_streams", *(f"decode_{g}" for g in groups)}
+    assert set(dec_flat) == set(dec) - {"host_split_streams"} | {"host_flatten"}
+    assert all(v >= 0 for v in [*enc.values(), *dec.values(), *dec_flat.values()])
+
+
+@pytest.mark.parametrize("coder", CODERS)
+def test_tracing_changes_no_byte(coder):
+    data, flat, _, _ = _round_trip(coder, stage_ms=False)
+    (tdata, tflat, _, _), _ = _traced(coder, stage_ms=True)
+    assert tdata == data
+    np.testing.assert_array_equal(tflat, flat)
+    streams, _, _ = _corpus()
+    np.testing.assert_array_equal(flat, np.concatenate(streams))
+
+
+@pytest.mark.parametrize("chunk_blocks", [None, 16], ids=["one_range", "ranges"])
+@pytest.mark.parametrize("coder", CODERS)
+def test_sync_spans_count_the_reads_of_each_range(coder, chunk_blocks):
+    (data, _, _, _), spans = _traced(coder, chunk_blocks=chunk_blocks)
+    ranges = len(api.block_ranges(read_frame(data).blocks.num_blocks, chunk_blocks))
+    assert (chunk_blocks is None) == (ranges == 1)
+    for side, got in zip(("encode", "decode"), _sides(spans)):
+        syncs = [n for n, _, _ in got if n.startswith("sync.")]
+        assert len(syncs) == CPU_SYNCS[side] * ranges, (side, syncs)
