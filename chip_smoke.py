@@ -1879,16 +1879,23 @@ FEED_PATHS = ("native", "numpy", "loop")
 
 def feed_times(streams, L, reps):
     """The best of reps host times (ms) of build_blocks' flat path (the
-    native feed; the concatenation included), the flat path's numpy twin
-    (build_blocks_flat_plain, the flat path up to this PR), and the
-    per-stream loop; fails unless their arrays are equal."""
+    native walk over the streams and the native feed from each stream's
+    buffer), the flat path's numpy twin (build_blocks_flat_plain, on the
+    concatenation it needs), and the per-stream loop; fails unless their
+    arrays are equal."""
     import numpy as np
 
+    from dctpu_torch import native
     from dctpu_torch.codec import api
+
+    def flat_path():
+        items = tuple(streams)
+        lens, addr, _ = native.stream_addresses(items)
+        return api.build_blocks_at(addr, lens, L)
 
     lens = np.array([s.size for s in streams], np.int64)
     fns = {
-        "native": lambda: api.build_blocks_flat(np.concatenate(streams), lens, L),
+        "native": flat_path,
         "numpy": lambda: api.build_blocks_flat_plain(np.concatenate(streams),
                                                      lens, L),
         "loop": lambda: api.build_blocks_loop(streams, L),
@@ -1938,7 +1945,7 @@ def host_feed_sweep(bench_streams, reps: int = 3) -> None:
             crossover.setdefault(f"L={L}, {total} samples", mean)
         print(f"host feed L={L}, {len(streams)} streams of mean {mean} "
               f"samples: native flat path {ms['native']:.2f} ms, numpy flat "
-              f"path {ms['numpy']:.2f} ms (both with the concatenation), loop "
+              f"path {ms['numpy']:.2f} ms (with the concatenation), loop "
               f"{ms['loop']:.2f} ms (best of {reps}, host times of the card "
               f"machine's CPU), arrays equal; build_blocks takes the {takes} "
               f"path", flush=True)
@@ -1962,9 +1969,8 @@ def flat_feed_check(dev, streams) -> None:
     host_feed_sweep(streams)
     flat = np.concatenate(streams)
     short = np.split(flat, flat.size // 2048)
-    lens = np.full(len(short), 2048, np.int64)
     t0 = time.perf_counter()
-    got = api.build_blocks_flat(np.concatenate(short), lens, BENCH_LEN)
+    got = api.build_blocks(short, BENCH_LEN)
     t1 = time.perf_counter()
     want = api.build_blocks_loop(short, BENCH_LEN)
     t2 = time.perf_counter()
@@ -1981,7 +1987,7 @@ def flat_feed_check(dev, streams) -> None:
             and all(np.array_equal(a, b) for a, b in zip(split, short))):
         fail("decompress_flat of the 16384-stream frame differs from the input")
     print(f"host feed, {len(short)} streams x 2048 samples: build_blocks "
-          f"flat path {1e3 * (t1 - t0):.1f} ms (with the concatenation), "
+          f"flat path {1e3 * (t1 - t0):.1f} ms (the walk and the native feed), "
           f"per-stream loop {1e3 * (t2 - t1):.1f} ms (host times of the card "
           f"machine's CPU), arrays equal; decompress_flat "
           f"{1e3 * (t4 - t3):.1f} ms, decompress {1e3 * (t5 - t4):.1f} ms "

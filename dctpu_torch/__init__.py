@@ -14,7 +14,8 @@ Layers, mirroring ``dctpu``:
              copies, and the reference's kernel-level ``pack`` / ``unpack``
   csrc/    — the CUDA C++ sources, built for sm_90a at first use, and the
              C++ host feed (csrc/host/), built with g++ at first use
-  native   — the host feed's binding (``native.build_blocks``)
+  native   — the host feed's binding (the stream walk and the block
+             build, ``native.stream_addresses``, ``build_streams``)
   dist/    — data parallelism over blocks on a list of devices (the
              sharded frame paths and the four sharded block functions),
              several processes over torch.distributed (gloo), the

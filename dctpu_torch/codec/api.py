@@ -91,20 +91,44 @@ def build_blocks(
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """Pack streams into [B, L] padded blocks + lengths + histories (numpy).
 
-    Two host paths that give the same arrays: :func:`build_blocks_flat`
-    (the native host feed, C++ on host threads) on one concatenation for
-    streams shorter than ``_FLAT_PATH_MAX_MEAN_LEN`` samples on average,
-    and :func:`build_blocks_loop` for longer ones, where the concatenation
-    costs more than the per-stream copies save. The reference picks the
-    flat path from 256 streams on, by its own host's timings."""
+    One native walk over the streams (``native.stream_addresses``) finds
+    each stream's length and, where the stream can be read in place, its
+    samples. Then two host paths that give the same arrays:
+    :func:`build_blocks_at` (the native host feed, C++ on host threads,
+    from each stream's own buffer) for streams shorter than
+    ``_FLAT_PATH_MAX_MEAN_LEN`` samples on average, with every stream the
+    walk could not read in place cast by ``np.asarray(s, np.int32).ravel()``
+    first (span ``feed.cast``); and :func:`build_blocks_loop` for longer
+    ones. The reference picks its flat path from 256 streams on, by its own
+    host's timings."""
     with span("feed.gather"):
-        lens = np.fromiter((np.asarray(s).size for s in streams), np.int64,
-                           len(streams))
-        flat = (np.concatenate([np.asarray(s, np.int32).ravel() for s in streams])
-                if takes_flat_path(lens) else None)
-    if flat is not None:
-        return build_blocks_flat(flat, lens, block_len)
-    return build_blocks_loop(streams, block_len)
+        # a tuple holds every stream alive while the build reads it
+        items = streams if type(streams) is tuple else tuple(streams)
+        lens, addr, marked = native.stream_addresses(items)
+        for i in marked.tolist():
+            lens[i] = np.asarray(items[i]).size
+        flat = takes_flat_path(lens)
+        if flat and marked.size:
+            with span("feed.cast"):
+                cast = _cast(items, marked, lens, addr)
+    if not flat:
+        return build_blocks_loop(items, block_len)
+    return build_blocks_at(addr, lens, block_len)  # cast lives till it returns
+
+
+def _cast(items, marked, lens, addr) -> List[np.ndarray]:
+    """The streams items[marked] as int32 samples
+    (``np.asarray(s, np.int32).ravel()``), their addresses written into
+    addr: the arrays, which must outlive the build. ValueError where a
+    cast's size is not lens[i]."""
+    cast = []
+    for i in marked.tolist():
+        a = np.asarray(items[i], np.int32).ravel()
+        if a.size != lens[i]:
+            raise ValueError(f"{a.size} samples for a stream of length {lens[i]}")
+        addr[i] = a.ctypes.data
+        cast.append(a)
+    return cast
 
 
 def takes_flat_path(lens: np.ndarray) -> bool:
@@ -142,33 +166,43 @@ def build_blocks_loop(
         return x, n, hist, nb, first
 
 
-def _flat_plan(flat, lens, block_len):
-    """(flat int32, lens int64, nb, first, sstart [S + 1] int64 stream
-    offsets) of a flat feed; ValueError if lens do not sum to flat's size."""
+def build_blocks_at(
+    addr: np.ndarray, lens: np.ndarray, block_len: int
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+    """:func:`build_blocks` of the streams whose lens[s] int32 samples lie
+    at address addr[s], by the native host feed (``native.build_streams``:
+    C++ on host threads, one copy per block from where the samples lie).
+    The caller keeps the samples alive."""
+    with span("feed.native"):
+        nb, first = plan_blocks(lens, block_len)
+        x, n, hist = native.build_streams(addr, lens, first, block_len,
+                                          int(nb.sum()))
+    return x, n, hist, nb, first
+
+
+def _flat_offsets(flat, lens):
+    """(flat int32, lens int64, sstart [S + 1] int64 stream offsets) of a
+    flat feed; ValueError if lens do not sum to flat's size."""
     flat = np.ascontiguousarray(flat, dtype=np.int32)
     lens = np.asarray(lens, dtype=np.int64)
-    nb, first = plan_blocks(lens, block_len)
     sstart = np.zeros(lens.size + 1, np.int64)
     np.cumsum(lens, out=sstart[1:])
     if flat.size != sstart[-1]:
         raise ValueError(f"{flat.size} samples for stream lengths summing to {sstart[-1]}")
-    return flat, lens, nb, first, sstart
+    return flat, lens, sstart
 
 
 def build_blocks_flat(
     flat: np.ndarray, lens: np.ndarray, block_len: int
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
     """:func:`build_blocks` over concatenated samples, by the native host
-    feed (``dctpu_torch.native``: C++ on host threads over the streams, one
-    copy per block). Raises if the library does not build.
+    feed (:func:`build_blocks_at` on the streams' offsets into ``flat``).
+    Raises if the library does not build.
 
     flat: all streams' samples concatenated (int32); lens: per-stream
     sample counts."""
-    with span("feed.native"):
-        flat, lens, nb, first, sstart = _flat_plan(flat, lens, block_len)
-        x, n, hist = native.build_blocks(flat, sstart, first, block_len,
-                                         int(nb.sum()))
-    return x, n, hist, nb, first
+    flat, lens, sstart = _flat_offsets(flat, lens)
+    return build_blocks_at(flat.ctypes.data + 4 * sstart[:-1], lens, block_len)
 
 
 def build_blocks_flat_plain(
@@ -179,7 +213,8 @@ def build_blocks_flat_plain(
     map by one repeat, the samples moved by one scatter per slice of
     streams, the histories by HISTORY_LEN whole-column gathers."""
     L = block_len
-    flat, lens, nb, first, sstart = _flat_plan(flat, lens, L)
+    flat, lens, sstart = _flat_offsets(flat, lens)
+    nb, first = plan_blocks(lens, L)
     B = int(nb.sum())
     x = np.zeros((B, L), dtype=np.int32)
     n = np.zeros(B, dtype=np.int32)

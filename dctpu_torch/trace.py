@@ -19,7 +19,8 @@ The names, by where they are opened:
   ``select``, ``emit_<coder>``, ``compact``, ``download``,
   ``host_frame_assembly``; ``host_block_table``, ``decode_<coder>``,
   ``reconstruct``, ``host_split_streams``, ``host_flatten``), inside them
-  the host feed's ``feed.gather``, ``feed.native`` and ``feed.loop`` and
+  the host feed's ``feed.gather`` (with ``feed.cast`` inside it when a
+  stream has to be cast to int32), ``feed.native`` and ``feed.loop`` and
   the assembly's ``assembly.columns`` and ``assembly.stream_dir``;
 * ``format/frame.py``: ``write_frame`` with ``.tables``, ``.payload``,
   ``.crc`` and ``.join``; ``read_frame`` with ``.sections``, ``.crc``,

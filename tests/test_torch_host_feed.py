@@ -1,8 +1,11 @@
 """The port's host feed for many streams (build_blocks_flat and its
 dispatch, decompress_flat) vs the JAX reference's, mirroring
-tests/test_host_feed.py, and the bounded passes (chunk_blocks) and decode
-backend names of compress / decompress against the single pass.
+tests/test_host_feed.py, build_blocks' walk over stream lists of every
+kind, and the bounded passes (chunk_blocks) and decode backend names of
+compress / decompress against the single pass.
 """
+
+import sys
 
 import numpy as np
 import pytest
@@ -12,6 +15,7 @@ from dctpu.config import CodecConfig as RefConfig
 from dctpu.corpus import synth_corpus
 from dctpu.format import read_frame as ref_read_frame
 from dctpu.format import write_frame as ref_write_frame
+from dctpu_torch import native
 from dctpu_torch.codec import api
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.format.frame import StreamDir, read_frame, write_frame
@@ -42,10 +46,114 @@ def test_build_blocks_flat_matches_reference(L):
         api.build_blocks_flat(flat[1:], lens, L)
 
 
+class _Tagged(np.ndarray):
+    """A subclass of ndarray: build_blocks casts it, as it casts lists."""
+
+
+def _unaligned(a):
+    """a's samples (int32) in an array whose data is not 4-byte aligned."""
+    buf = np.zeros(4 * a.size + 1, np.uint8)
+    out = buf[1:].view(np.int32) if a.size else np.zeros(0, np.int32)
+    out[:] = a
+    return out
+
+
+# each kind: (samples int32, rng) -> one stream of those samples
+KINDS = {
+    "int32": lambda a, rng: a.copy(),
+    "strided": lambda a, rng: np.repeat(a, 2)[::2],
+    "big_endian": lambda a, rng: a.astype(">i4"),
+    "int16": lambda a, rng: (a % 30000).astype(np.int16),
+    "int64": lambda a, rng: a.astype(np.int64),
+    "float64": lambda a, rng: a.astype(np.float64),
+    "list": lambda a, rng: a.tolist(),
+    "two_d": lambda a, rng: (a.reshape(2, -1) if a.size % 2 == 0
+                             else a.reshape(1, -1)),
+    "zero_d": lambda a, rng: np.array(a[0] if a.size else 7, np.int32),
+    "zero_d_int64": lambda a, rng: np.array(a[0] if a.size else 7, np.int64),
+    "empty": lambda a, rng: np.zeros(0, np.int32),
+    "subclass": lambda a, rng: a.copy().view(_Tagged),
+    "unaligned": lambda a, rng: _unaligned(a),
+}
+
+
+def _mixed(kinds, n_streams=300, max_len=500, seed=0):
+    """n_streams streams of the given kinds in turn; "views" makes int32
+    views of one flat array."""
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(0, max_len, size=n_streams)
+    flat = rng.integers(-(2**20), 2**20, size=int(lens.sum()), dtype=np.int32)
+    parts = np.split(flat, np.cumsum(lens)[:-1])
+    if kinds == ("views",):
+        return parts
+    return [KINDS[kinds[i % len(kinds)]](a, rng) for i, a in enumerate(parts)]
+
+
+FEED_CASES = {
+    "views": ("views",),
+    "separate_int32": ("int32",),
+    "strided": ("int32", "strided"),
+    "big_endian": ("big_endian", "int32"),
+    "other_dtypes": ("int16", "int64", "float64", "int32"),
+    "lists": ("list", "int32"),
+    "zero_d_and_two_d": ("zero_d", "two_d", "zero_d_int64", "int32"),
+    "with_empty": ("empty", "int32", "empty", "int64"),
+    "subclass": ("subclass", "int32"),
+    "unaligned": ("unaligned", "int32"),
+    "every_kind": tuple(KINDS),
+    "only_empty": ("empty",),
+}
+
+
+@pytest.mark.parametrize("as_tuple", [False, True], ids=["list", "tuple"])
+@pytest.mark.parametrize("case", sorted(FEED_CASES))
+def test_build_blocks_walks_every_kind_of_stream(case, as_tuple):
+    """build_blocks reads int32 ndarrays in place and casts every other
+    stream: the reference's arrays and build_blocks_flat's on the
+    concatenation, byte for byte, for a list or a tuple of streams."""
+    streams = _mixed(FEED_CASES[case], seed=len(case))
+    if as_tuple:
+        streams = tuple(streams)
+    in_place = [type(s) is np.ndarray and s.dtype == np.int32 and s.dtype.isnative
+                and s.flags.c_contiguous and s.flags.aligned for s in streams]
+    cast = [np.asarray(s, np.int32).ravel() for s in streams]
+    lens = np.array([a.size for a in cast], np.int64)
+    walked, addr, marked = native.stream_addresses(tuple(streams))
+    assert marked.tolist() == [i for i, ok in enumerate(in_place) if not ok]
+    assert np.array_equal(walked[in_place], lens[in_place])
+    assert np.array_equal(addr[in_place],
+                          [a.ctypes.data for a, ok in zip(cast, in_place) if ok])
+    got = api.build_blocks(streams, 128)
+    assert all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(
+        got, ref_api.build_blocks(streams, 128)))
+    assert _equal(got, api.build_blocks_flat(np.concatenate(cast), lens, 128))
+
+
+def test_build_blocks_keeps_no_reference():
+    """The walk and the casts take no lasting reference to any stream."""
+    streams = _mixed(tuple(KINDS), seed=9)
+    before = [sys.getrefcount(s) for s in streams]
+    api.build_blocks(streams, 128)
+    assert [sys.getrefcount(s) for s in streams] == before
+
+
+@pytest.mark.parametrize("bad", [[2**40], "abc", [[1, 2], [3]]],
+                         ids=["overflow", "string", "ragged"])
+def test_build_blocks_raises_as_the_reference(bad):
+    """A stream that np.asarray(s, np.int32) rejects raises the exception
+    type the reference raises."""
+    streams = _mixed(("int32",), seed=2)
+    streams[100] = bad
+    with pytest.raises(Exception) as want:
+        ref_api.build_blocks(streams, 128)
+    with pytest.raises(type(want.value)):
+        api.build_blocks(streams, 128)
+
+
 def _dispatch(monkeypatch, streams, L):
     """build_blocks(streams, L) -> (its arrays, the paths it took)."""
     taken = []
-    for name in ("build_blocks_flat", "build_blocks_loop"):
+    for name in ("build_blocks_at", "build_blocks_loop"):
         real = getattr(api, name)
         monkeypatch.setattr(api, name, lambda *a, _f=real, _n=name:
                             taken.append(_n) or _f(*a))
@@ -64,7 +172,7 @@ def test_build_blocks_dispatches_flat_path(monkeypatch):
     rng = np.random.default_rng(4)
     streams = _corpus(rng, 300, api._FLAT_PATH_MAX_MEAN_LEN)
     got, taken = _dispatch(monkeypatch, streams, 128)
-    assert taken == ["build_blocks_flat"]
+    assert taken == ["build_blocks_at"]
     assert _equal(got, ref_api.build_blocks(streams, 128))
 
 

@@ -63,6 +63,49 @@ def test_native_build_blocks_matches_reference_signature():
     assert _equal(got, (x, n, hist))
 
 
+@pytest.mark.parametrize("case, L", [
+    (case, L) for case in sorted(CASES) for L in (1, 128)])
+def test_native_core_reads_each_stream_where_it_lies(case, L):
+    """native.build_streams fed each stream's own buffer (separate arrays,
+    laid out in memory in another order than the streams) gives the flat
+    entry's arrays and the plain twin's."""
+    flat, lens = _feed(CASES[case], seed=len(CASES[case]) + L + 1)
+    parts = np.split(flat, np.cumsum(lens)[:-1])
+    order = np.random.default_rng(L).permutation(len(parts))
+    owned = [None] * len(parts)
+    for i in order:  # allocated out of stream order
+        owned[i] = parts[i].copy()
+    addr = np.array([a.ctypes.data for a in owned], np.int64)
+    x, n, hist, nb, first = api.build_blocks_flat_plain(flat, lens, L)
+    got = native.build_streams(addr, lens, first, L, int(nb.sum()))
+    assert _equal(got, (x, n, hist))
+    assert _equal(api.build_blocks_at(addr, lens, L),
+                  api.build_blocks_flat(flat, lens, L))
+
+
+def test_stream_walk_takes_a_tuple():
+    """The walk reads a tuple only: build_blocks makes one of any other
+    sequence."""
+    with pytest.raises(TypeError, match="tuple of streams"):
+        native.stream_addresses([np.zeros(3, np.int32)])
+    lens, addr, marked = native.stream_addresses(())
+    assert lens.size == addr.size == marked.size == 0
+
+
+def test_build_key_follows_numpy_and_python(monkeypatch):
+    """The walk is compiled against numpy's and Python's headers: another
+    numpy version or include directory is another build."""
+    key = native.build_key("g++")
+    assert native.build_key("g++") == key
+    monkeypatch.setattr(native.np, "__version__", "0.0.0")
+    assert native.build_key("g++") != key
+    monkeypatch.undo()
+    monkeypatch.setattr(native.sysconfig, "get_paths",
+                        lambda: {"include": "/elsewhere/include/python3"})
+    assert native.build_key("g++") != key
+    assert "-I/elsewhere/include/python3" in native.build_flags()
+
+
 def test_failed_build_raises_with_the_compiler_output(monkeypatch, tmp_path):
     monkeypatch.setattr(native, "BUILD_ROOT", tmp_path)
     monkeypatch.setenv("CXX", "false")

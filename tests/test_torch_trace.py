@@ -34,7 +34,11 @@ ENCODE = {
 FEED = {"flat": {"feed.gather": "host_build_blocks",
                  "feed.native": "host_build_blocks"},
         "loop": {"feed.gather": "host_build_blocks",
-                 "feed.loop": "host_build_blocks"}}
+                 "feed.loop": "host_build_blocks"},
+        # one int64 stream, which the flat feed casts to int32
+        "flat_cast": {"feed.gather": "host_build_blocks",
+                      "feed.cast": "feed.gather",
+                      "feed.native": "host_build_blocks"}}
 DECODE = {
     "read_frame": None, "read_frame.sections": "read_frame",
     "read_frame.crc": "read_frame", "read_frame.tables": "read_frame",
@@ -56,10 +60,13 @@ def _cfg(coder):
     return CodecConfig(block_len=256, coder=coder)
 
 
-def _round_trip(coder, stage_ms=True, chunk_blocks=None):
+def _round_trip(coder, stage_ms=True, chunk_blocks=None, cast=False):
     """compress -> write_frame -> read_frame -> decompress_flat on the CPU:
-    (frame bytes, flat samples, encode stage_ms, decode stage_ms)."""
+    (frame bytes, flat samples, encode stage_ms, decode stage_ms); cast:
+    the corpus's second stream given as int64."""
     streams, ids, cads = _corpus()
+    if cast:
+        streams = [streams[0], streams[1].astype(np.int64), *streams[2:]]
     enc, dec = ({}, {}) if stage_ms else (None, None)
     frame = api.compress(streams, _cfg(coder), ids, cads, device="cpu",
                          stage_ms=enc, chunk_blocks=chunk_blocks)
@@ -92,12 +99,13 @@ def _sides(spans):
 
 
 @pytest.mark.parametrize("stage_ms", [True, False], ids=["stage_ms", "no_stage_ms"])
-@pytest.mark.parametrize("feed", ["flat", "loop"])
+@pytest.mark.parametrize("feed", ["flat", "loop", "flat_cast"])
 @pytest.mark.parametrize("coder", CODERS)
 def test_each_step_is_a_span_inside_its_parent(monkeypatch, coder, feed, stage_ms):
     if feed == "loop":
         monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", 0)
-    (data, _, _, _), spans = _traced(coder, stage_ms=stage_ms)
+    (data, _, _, _), spans = _traced(coder, stage_ms=stage_ms,
+                                     cast=feed == "flat_cast")
     groups = _groups(data)
     want = {"encode": {**ENCODE, **FEED[feed], **{f"emit_{g}": None for g in groups}},
             "decode": {**DECODE, **{f"decode_{g}": None for g in groups}}}
