@@ -25,7 +25,9 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      rows from the raw samples at every k in 0..30, and "K5a-z"), K9's
      disk-order planes, R (the reconstruction) in its range form (each
      block's row read from one of two shuffled coder groups) on every
-     predictor and table, with histories at the int32 extremes, timed also
+     predictor and table, and in its flat form ("R-flat": each block's
+     valid samples at its offset, the prefix sums of n as the decode
+     gives them and the same one sample on, off 16-byte alignment), with histories at the int32 extremes, timed also
      with every block on one predictor at 8192 and 512 blocks beside
      torch.cumsum as DELTA's yardstick, CP (the encode's compaction) and
      its count pass on the blocks' RICE and VERTICAL rows, each coder
@@ -50,7 +52,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      VC-xbp once and VC-lpc once per LPC candidate on the vertical paths,
      never on the others;
      K1 once and K2's LPC form once per LPC candidate on the adaptive
-     paths; R once per decode range (here one) in every decode, CP and
+     paths; R once per decode range (here one) in every decode, in its
+     flat form, CP and
      its count pass once per encode range (here one) in every encode, K5b
      once
      per RICE group and K4 once per VERTICAL group; K3 once per VERTICAL
@@ -89,7 +92,8 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      cuda:0] (two shards, four chunks), each frame byte-identical to the
      coder's default frame and each round trip bit-exact, with the
      counters set to 0 around each: every kernel of the coder's default
-     path once per block range and coder group (R once per range), no
+     path once per block range and coder group (R once per range, in its
+     padded form), no
      plain stage; then
      compress_multihost with two processes on the card, 8 streams each,
      under the "allgather" and the "files" gather, for the rice and the
@@ -373,6 +377,8 @@ def work(key, B, L, n, b, rows_words, preds):
         "K3-z": (4 * B * L + 4 * B + rows_out, v * 64),
         "R": (8 * B * L + 16 * B + 16 * B + 16 * rows_words["tables"],
               pred_ops(n, L, preds["R"])),
+        "R-flat": (4 * B * L + 4 * v + 16 * B + 16 * B + 8 * B
+                   + 16 * rows_words["tables"], pred_ops(n, L, preds["R"])),
         "K4": (4 * rows_words["K4"] + 16 * B + 4 * B + 4 * B * L,
                3 * 128 * int(b.sum())),
         "K4-slot": (4 * rows_words["K4"] + 4 * B + 4 * B + 4 * B * L,
@@ -437,6 +443,8 @@ RECS = {
            "dctpu/kernels/transpose_pallas.py:83"),
     "R": ("R reconstruct", "dctpu_torch/csrc/recon.cu",
           "dctpu/codec/predict.py:93"),
+    "R-flat": ("R reconstruct (flat form: valid samples at out_off)",
+               "dctpu_torch/csrc/recon.cu", "dctpu/codec/api.py:762"),
     "VC-xbp": ("VC vertical_cost_xbp (DELTA + DOUBLE_DELTA form)",
                "dctpu_torch/csrc/select.cu",
                "dctpu/kernels/vertical_xla.py:263"),
@@ -524,6 +532,7 @@ def check_kernels(dev):
     from dctpu_torch.kernels.transpose import bit_planes32, bit_planes32_plain
     from dctpu_torch.kernels import ragged
     from dctpu_torch.kernels.reconstruct import (
+        flat_plain,
         reconstruct,
         reconstruct_range_plain,
     )
@@ -594,6 +603,20 @@ def check_kernels(dev):
         zr = z.clone()
         zr[14] = -1
         z_first, z_second, src = split_groups(zr, seed=400 + si)
+        # R's flat form writes each block's valid samples at its offset:
+        # the prefix sums of n (as the decode gives them), and the same one
+        # sample on, so that every row starts off 16-byte alignment
+        off_r = torch.cumsum(n.long(), 0) - n.long()
+        len_r = int(n.long().sum())
+        r_args = (z_first, n, pred_r, tidx, hist_r, coeffs)
+
+        def r_flat(shift):
+            return reconstruct(*r_args, src=src, z1=z_second,
+                               out_off=off_r + shift, out_len=len_r + shift)
+
+        def r_flat_plain(shift):
+            x_r = reconstruct_range_plain(*r_args, src, z_second)
+            return flat_plain(x_r, n, off_r + shift, len_r + shift)
         chosen = torch.tensor([p for p, _ in cands], device=dev)[choice.long()]
         preds = {"K3": chosen, "K5a": chosen, "R": pred_r}
         payload, bit_len = rice_pack_plain(z, k, n, L)
@@ -682,6 +705,9 @@ def check_kernels(dev):
                   lambda: (reconstruct_range_plain(z_first, n, pred_r, tidx,
                                                    hist_r, coeffs, src,
                                                    z_second),)),
+            # the shifted output's sample 0 is no block's
+            "R-flat": (lambda: (r_flat(0), r_flat(1)[1:]),
+                       lambda: (r_flat_plain(0), r_flat_plain(1)[1:])),
             "CP": (lambda: compact_range(*cp_args),
                    lambda: compact_range_plain(*cp_args)),
             "CP-count": (lambda: count_range(*cp_args[2:]),
@@ -719,6 +745,9 @@ def check_kernels(dev):
                 if key == "K4-slot":  # likewise
                     r["wrapper_ms"] = time_ms(kern, 10)
                     kern = lambda: launch_vdec_slots(rows, n, L)  # noqa: E731
+                if key == "R-flat":  # the decode's offsets alone
+                    kern = lambda: r_flat(0)  # noqa: E731
+                    plain = lambda: r_flat_plain(0)  # noqa: E731
                 if key == "CP":  # the copy; the wrapper adds the count
                     # pass and two host reads
                     r["wrapper_ms"] = time_ms(kern, 10)
@@ -749,7 +778,7 @@ def check_kernels(dev):
         del x, z, hist, n, k, rows, planes, vwords, pos_words, vals, payload
         del r_words, r_start, r_count, v_words, v_start, v_count
         del zs, b_exc, groups, emitted, choice, pred_r, tidx, hist_r, zr, preds
-        del z_first, z_second, src, vbits, cp_args, codes
+        del z_first, z_second, src, vbits, cp_args, codes, off_r, r_args
         torch.cuda.empty_cache()
     return recs
 
@@ -1052,13 +1081,22 @@ def counters():
 
 
 def reset_counters() -> None:
+    from dctpu_torch.kernels import reconstruct
+
     for fns in counters().values():
         for fn in fns:
             fn.launches = 0
+    reconstruct.reconstruct.flat_launches = 0
 
 
 def read_counters() -> dict:
-    return {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
+    """Each record's launches; "R" counts both of R's forms, "R-flat" the
+    flat one's."""
+    from dctpu_torch.kernels import reconstruct
+
+    out = {k: sum(fn.launches for fn in fns) for k, fns in counters().items()}
+    out["R-flat"] = reconstruct.reconstruct.flat_launches
+    return out
 
 
 # kernels each path must launch, and those it must not: the paths are
@@ -1255,11 +1293,13 @@ def run_path(dev, coder, streams, ids, cads, backend=None):
                   "repeat_interleave": 0, "staged_flip": 0,
                   "decode_vertical_slots_plain": 0,
                   "rice_pack_codes_plain": 0, "reconstruct_plain": 0}
-    if (launches["R"], launches["CP"], launches["CP-count"], launches["K3"],
-            plain) != (1, 1, 1, 0 if staged else int(hist[1] > 0), want_plain):
-        fail(f"R launched {launches['R']} times, CP {launches['CP']} and its "
+    if (launches["R"], launches["R-flat"], launches["CP"],
+            launches["CP-count"], launches["K3"], plain) != (
+            1, 1, 1, 1, 0 if staged else int(hist[1] > 0), want_plain):
+        fail(f"R launched {launches['R']} times, {launches['R-flat']} of them "
+             f"in its flat form, CP {launches['CP']} and its "
              f"count pass {launches['CP-count']} (want 1 each, one per decode "
-             f"and encode range), K3 "
+             f"and encode range, R in its flat form), K3 "
              f"{launches['K3']}, plain stages {plain} (want {want_plain})")
     if (launches["K5b"], launches["K4"]) != (int(hist[0] > 0), int(hist[1] > 0)):
         fail(f"K5b launched {launches['K5b']} times (want one per RICE group), "
@@ -1620,7 +1660,8 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     coder's default path once per range and coder group (K2, K6 and
     VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R, CP and
     CP's count pass once per range, and none of the z forms, the block
-    API's forms (K4-slot, K5a-codes), K7, K8 or K9."""
+    API's forms (K4-slot, K5a-codes), R's flat form (the sharded decode
+    downloads padded blocks), K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
@@ -1633,7 +1674,7 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
         "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
         "K8": 0, "K9": 0, "R": r, "VC-xbp": r * vert_sel,
-        "VC-lpc": r * n_lpc * vert_sel, "CP": r, "CP-count": r,
+        "VC-lpc": r * n_lpc * vert_sel, "CP": r, "CP-count": r, "R-flat": 0,
     }
 
 

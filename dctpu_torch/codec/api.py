@@ -34,6 +34,7 @@ given.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, Sequence, Tuple
 
 import numpy as np
@@ -69,13 +70,25 @@ DEFAULT_CHUNK_BLOCKS = 2048  # the reference's, and the sharded paths' default
 # 105 bytes a sample, here with a margin of half again.
 DEVICE_BYTES_PER_SAMPLE = 160
 DEVICE_SHARE = 4
-# build_blocks takes the flat path below this mean stream length (samples):
+# build_blocks takes the flat path below this mean stream length (samples),
+# and decompress downloads the samples into one array there, and straight
+# into each stream's own array from it on:
 # chip_smoke.py's host feed sweep on an H100 host's 8 CPUs (PERF.md §6)
 # puts the crossover of the native flat path and the per-stream loop
 # between 65536 (flat faster) and 262144 (loop faster) at 128 MiB, and
 # above 65536 at 16 MiB; the bench's 16 streams of 2 Mi samples stay on
 # the loop
 _FLAT_PATH_MAX_MEAN_LEN = 131072
+# decompress makes the arrays of long streams on this many host threads,
+# each touched one sample a 4 KiB page, ahead of the copies into them, so
+# that a copy finds its pages mapped. On an H100 machine's host (8 cores),
+# dataport.bulk's 240 fresh arrays of 2.1 MB took 450 ms to touch on one
+# thread; a decompress took 183-247 ms (medians of two processes) with the
+# arrays made and touched on 4 threads, 200-258 ms made on the calling
+# thread and touched on 4, 320-449 ms touched on 2, 318-804 ms not touched
+# (PERF.md §6)
+_TOUCH_THREADS = 4
+_PAGE_SAMPLES = 1024
 # the reference decoder's backend names (dctpu/codec/api.py
 # _decode_blocks_array, dctpu/kernels/api.py unpack)
 DECODE_BACKENDS = (None, *UNPACK_BACKENDS)
@@ -508,17 +521,73 @@ def decompress(
     chunk_blocks: int | None = None,
     backend: str | None = None,
 ) -> List[np.ndarray]:
-    """Frame -> streams (int32 numpy arrays).
+    """Frame -> streams (int32 numpy arrays, each owning its samples).
 
     ``backend`` takes the reference decoder's names (``DECODE_BACKENDS``);
     the port has one decode path, K5b and K4 then R, and runs it for each
     of them. As in the reference, a RICE group raises ValueError for any
     other name. ``chunk_blocks`` bounds the blocks per pass (default: one
-    pass on the CPU, :func:`range_blocks` on a card)."""
-    xs = decode_blocks_array(frame, [device], stage_ms, chunk_blocks, backend)
-    with Stages(stage_ms, "cpu")("host_split_streams"):
-        out = split_streams(xs, frame.streams)
-    return out
+    pass on the CPU, :func:`range_blocks` on a card).
+
+    R writes each range's samples in stream order (:func:`decode_flat`),
+    and the host takes them by the feed's switch (:func:`takes_flat_path`):
+    streams long on average each get their own array, made and its pages
+    touched on ``_TOUCH_THREADS`` host threads ahead of the copies, and
+    filled by one copy from the device per range it spans (span
+    ``download.streams``); short ones are downloaded into one array, then
+    copied out of it, so that a million streams make no million device
+    copies."""
+    host = Stages(stage_ms, "cpu")
+    soff, ranges = decode_flat(frame, device, stage_ms, chunk_blocks, backend)
+    with host("host_split_streams"):
+        lens, starts = _stream_samples(frame, soff)
+    if takes_flat_path(lens):
+        flat = _download_flat(soff, ranges)
+        with host("host_split_streams"):
+            return [flat[a : a + k].copy()
+                    for a, k in zip(starts.tolist(), lens.tolist())]
+    ends = starts + lens
+    with ThreadPoolExecutor(_TOUCH_THREADS) as pool:
+        out = [pool.submit(_fresh, k) for k in lens.tolist()]
+        for x, s0, s1, stage in ranges:
+            lo, hi = np.maximum(starts, s0), np.minimum(ends, s1)
+            cut = np.nonzero(lo < hi)[0]
+            with stage("download"), span("download.streams"), span("sync.download"):
+                for i, a, b in zip(cut.tolist(), lo[cut].tolist(), hi[cut].tolist()):
+                    t = int(starts[i])
+                    dst = out[i].result()[a - t : b - t]
+                    torch.from_numpy(dst).copy_(x[a - s0 : b - s0])
+        return [f.result() for f in out]
+
+
+def _fresh(k: int) -> np.ndarray:
+    """A new int32 array of k samples with one sample written in each 4 KiB
+    page, so that the host has mapped its pages before a copy lands there."""
+    a = np.empty(k, np.int32)
+    a[::_PAGE_SAMPLES] = 0
+    return a
+
+
+def _stream_samples(frame: Frame, soff: np.ndarray):
+    """(lens, starts) int64: each stream's sample count and its first
+    sample among the blocks' valid samples in block order (soff, the
+    exclusive prefix sum of n); ValueError for a stream whose samples run
+    past its own blocks."""
+    sd = frame.streams
+    if isinstance(sd, StreamDir):
+        lens, first, nb = (a.astype(np.int64) for a in
+                           (sd.num_samples, sd.first_block, sd.num_blocks))
+    else:
+        lens, first, nb = (
+            np.fromiter((getattr(s, f) for s in sd), np.int64, len(sd))
+            for f in ("num_samples", "first_block", "num_blocks"))
+    B = soff.size - 1
+    last = first + nb
+    if (last > B).any() or (soff[np.minimum(last, B)] - soff[np.minimum(first, B)]
+                            < lens).any():
+        raise ValueError("malformed DCF1 stream directory: a stream's samples "
+                         "run past its blocks")
+    return lens, soff[first]
 
 
 def split_streams(xs: np.ndarray, streams) -> List[np.ndarray]:
@@ -539,19 +608,28 @@ def decompress_flat(
 ) -> Tuple[np.ndarray, np.ndarray]:
     """:func:`decompress`, returning (all streams' samples concatenated,
     per-stream lengths): blocks are in stream order and every block but a
-    stream's last is full, so the blocks' valid prefixes, concatenated, are
-    the streams' samples, with no per-stream split."""
-    xs = decode_blocks_array(frame, [device], stage_ms, chunk_blocks, backend)
+    stream's last is full, so the blocks' valid samples in block order are
+    the streams' samples. R writes them so on the device
+    (:func:`decode_flat`), and each range's download lands in its slice of
+    the one output array."""
+    soff, ranges = decode_flat(frame, device, stage_ms, chunk_blocks, backend)
+    flat = _download_flat(soff, ranges)
     with Stages(stage_ms, "cpu")("host_flatten"):
-        L = frame.block_len
-        n = frame.blocks.n.astype(np.int64)
-        mask = np.arange(L, dtype=np.int64)[None, :] < n[:, None]
-        flat = xs.reshape(-1)[mask.reshape(-1)]
         if isinstance(frame.streams, StreamDir):
             lens = frame.streams.num_samples.astype(np.int64)
         else:
             lens = np.array([s.num_samples for s in frame.streams], np.int64)
     return flat, lens
+
+
+def _download_flat(soff: np.ndarray, ranges) -> np.ndarray:
+    """The samples of :func:`decode_flat`'s ranges, each downloaded into its
+    slice of one host array of soff[-1] samples."""
+    flat = np.empty(int(soff[-1]), np.int32)
+    for x, s0, s1, stage in ranges:
+        with stage("download"), span("sync.download"):
+            torch.from_numpy(flat[s0:s1]).copy_(x)
+    return flat
 
 
 def _check_block_table(frame: Frame) -> None:
@@ -579,12 +657,15 @@ def _check_block_table(frame: Frame) -> None:
 
 def decode_range(
     frame: Frame, off_h: np.ndarray, coeffs: torch.Tensor, b0: int, b1: int,
-    backend: str | None = None, stage=None,
+    backend: str | None = None, stage=None, soff: np.ndarray | None = None,
 ):
     """Blocks b0..b1 of the frame -> ([b1 - b0, L] decoded blocks, zeros
     past n, on coeffs' device; K4's flags for ``vdec.raise_if_bad``, or
     None): each coder group decoded by its kernel, then one R over the
-    whole range, which writes every output row in block order.
+    whole range, which writes every output row in block order. With soff
+    (the exclusive prefix sum of the frame's n, [B + 1] int64), R's flat
+    form: the range's soff[b1] - soff[b0] valid samples, block b's at
+    soff[b] - soff[b0], in place of the blocks.
 
     Only the range's compact words, [off_h[b0], off_h[b1]), cross to the
     device, with each block's start rebased to them; each coder group's
@@ -627,6 +708,8 @@ def decode_range(
             )
         }
         heads["start"] = torch.from_numpy(off_h[b0:b1] - w0).to(device)
+        if soff is not None:
+            heads["out_off"] = torch.from_numpy(soff[b0:b1] - soff[b0]).to(device)
         groups = [(gname, torch.from_numpy(idx_h).to(device))
                   for gname, idx_h in groups]
     zs, bad = [], None
@@ -637,11 +720,14 @@ def decode_range(
                                 gname)
         bad = flags if flags is not None else bad
         zs.append(z)
+    flat = {} if soff is None else {"out_off": heads["out_off"],
+                                     "out_len": int(soff[b1] - soff[b0])}
     if not zs:  # an empty range
-        return torch.empty((0, L), dtype=torch.int32, device=device), bad
+        shape = (0, L) if soff is None else (0,)
+        return torch.empty(shape, dtype=torch.int32, device=device), bad
     with stage("reconstruct"):
         xs = reconstruct(zs, heads["src"], heads["n"], heads["predictor"],
-                         heads["table_idx"], heads["history"], coeffs)
+                         heads["table_idx"], heads["history"], coeffs, **flat)
     return xs, bad
 
 
@@ -683,3 +769,43 @@ def decode_blocks_array(
     for stage in stages:
         stage.finish()
     return out
+
+
+def decode_flat(
+    frame: Frame,
+    device,
+    stage_ms: dict | None = None,
+    chunk_blocks: int | None = None,
+    backend: str | None = None,
+):
+    """:func:`decode_blocks_array`'s flat sibling, on one device: frame ->
+    (soff, ranges). soff [B + 1] int64 is the exclusive prefix sum of the
+    blocks' n, block b's first sample among all blocks' valid samples in
+    block order (for a frame of blocks in stream order, the streams'
+    samples concatenated). ranges yields, for each range of
+    ``chunk_blocks`` blocks, once K4's flags are checked, (x, s0, s1,
+    stage): x the range's samples soff[b0]..soff[b1] on the device, as R's
+    flat form writes them, and the device's ``Stages`` for the caller's
+    ``download`` of them, which comes before the next range is launched.
+    The stages' times are added once the last range is taken."""
+    L = frame.block_len
+    B = frame.blocks.num_blocks
+    with Stages(stage_ms, "cpu")("host_block_table"):
+        _check_block_table(frame)
+        off_h = frame.blocks.word_offsets(L)
+        soff = np.zeros(B + 1, np.int64)
+        np.cumsum(frame.blocks.n, out=soff[1:])
+    tables = [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]]
+    coeffs = torch.tensor(tables, dtype=torch.int32, device=device)
+    stage = Stages(stage_ms, device)
+    ranges = block_ranges(B, range_blocks(chunk_blocks, device_memory([device]), L))
+
+    def decoded():
+        for b0, b1 in ranges:
+            x, bad = decode_range(frame, off_h, coeffs, b0, b1, backend, stage,
+                                  soff)
+            raise_if_bad(bad)
+            yield x, int(soff[b0]), int(soff[b1]), stage
+        stage.finish()
+
+    return soff, decoded()

@@ -43,16 +43,18 @@ def decode_z(words, start, count, k, n, block_len: int, coder: str):
     return launch_vdec_words(words, start, count, n, block_len)
 
 
-def reconstruct(zs, src, n, predictor, table_idx, history,
-                table_coeffs) -> torch.Tensor:
+def reconstruct(zs, src, n, predictor, table_idx, history, table_coeffs,
+                out_off=None, out_len=None) -> torch.Tensor:
     """A decode range's coder groups' zigzag values (zs: one or two [Bg, L]
     tensors) -> the range's samples [B, L] int32 in block order, zeros past
-    n; block b's row is zs[0][src[b]] for src[b] >= 0 and zs[1][-1 - src[b]]
-    for src[b] < 0; table_coeffs [T, 4] int32. One launch of R per call on
-    a card."""
+    n, or with out_off [B] int64 and out_len, R's flat form: [out_len], block
+    b's n valid samples at out_off[b]; block b's row is zs[0][src[b]] for
+    src[b] >= 0 and zs[1][-1 - src[b]] for src[b] < 0; table_coeffs [T, 4]
+    int32. One launch of R per call on a card."""
     return recon.reconstruct(zs[0], n, predictor, table_idx, history,
                              table_coeffs, src=src,
-                             z1=zs[1] if len(zs) > 1 else None)
+                             z1=zs[1] if len(zs) > 1 else None,
+                             out_off=out_off, out_len=out_len)
 
 
 def table_coeffs_i32(table_coeffs, device) -> torch.Tensor:

@@ -6,10 +6,19 @@
 // reconstruct_lpc) and the zeros past n. It was no Pallas kernel on the TPU.
 // One launch covers a whole decode range: block b's zigzag row is row src[b]
 // of the first coder group's z (src[b] >= 0) or row -1 - src[b] of the
-// second's (src[b] < 0), and R writes every row of the range's output in
-// block order, zeros past n included, so the decode neither zero-fills nor
-// scatters. Samples past n never feed earlier ones, so writing zeros from n
-// on equals the reference's reconstruct-then-mask.
+// second's (src[b] < 0). R writes its output in one of two forms:
+//
+// - padded (out_off null): row b of [B, L] in block order, zeros past n
+//   included, so the decode neither zero-fills nor scatters. Samples past n
+//   never feed earlier ones, so writing zeros from n on equals the
+//   reference's reconstruct-then-mask.
+// - flat (out_off [B] int64): only block b's n valid samples, at x +
+//   out_off[b], and no zeros. With out_off the prefix sum of n, the output
+//   is the range's samples in stream order, which the host downloads as
+//   they are.
+//
+// Only the mover's store address and limit tell the forms apart; the walk,
+// the tiles and the pipeline are the same.
 //
 // What bounds it on the card: it reads 4 bytes and writes 4 bytes per
 // sample (~0.08 ms at 8192 x 4096), and each block is a chain of L
@@ -89,7 +98,8 @@ __device__ __forceinline__ void load_piece(int32_t* tile, const int32_t* my_z,
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-// Mover: stores piece `base` of the CTA's rows from tile, coalesced.
+// Mover: stores piece `base` of the CTA's rows from tile, coalesced (the
+// padded form: row q at xb + q * block_len, zeros past n included).
 __device__ __forceinline__ void store_piece(const int32_t* tile,
                                             int32_t* xb, int rows,
                                             int block_len, int base,
@@ -108,6 +118,40 @@ __device__ __forceinline__ void store_piece(const int32_t* tile,
       for (int k = 0; k < kChunk / 32; ++k) {
         const int col = base + 32 * k + lane;
         if (col < block_len) xrow[col] = trow[32 * k + lane];
+      }
+    }
+  }
+}
+
+// Mover: the flat form's store_piece: row q's samples base <= col < lim_q
+// at x_q + col, x_q and lim_q (its n) read from the CTA's row table. A row
+// whose x_q is 16-byte aligned takes 16-byte stores, with 4-byte ones for a
+// last group of fewer than four samples; any other row 4-byte stores. The
+// mover's time per piece is close to the walk's, so rows go four at a time:
+// the table reads of one row overlap the stores of another.
+__device__ __forceinline__ void store_piece_flat(const int32_t* tile,
+                                                 int32_t* const* row_x,
+                                                 const int* row_lim, int rows,
+                                                 int base) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll 4
+  for (int q = 0; q < rows; ++q) {
+    const int32_t* trow = tile + q * kStride;
+    int32_t* xrow = row_x[q];
+    const int lim = row_lim[q];
+    if ((reinterpret_cast<uintptr_t>(xrow) & 15) == 0) {
+      const int col = base + 4 * lane;
+      if (col + 4 <= lim) {
+        *reinterpret_cast<int4*>(xrow + col) =
+            *reinterpret_cast<const int4*>(trow + 4 * lane);
+      } else {
+        for (int c = col; c < lim; ++c) xrow[c] = trow[c - base];
+      }
+    } else {
+#pragma unroll
+      for (int k = 0; k < kChunk / 32; ++k) {
+        const int col = base + 32 * k + lane;
+        if (col < lim) xrow[col] = trow[32 * k + lane];
       }
     }
   }
@@ -151,8 +195,9 @@ recon_kernel(const int32_t* __restrict__ za, const int32_t* __restrict__ zb,
              const int32_t* __restrict__ table_idx,
              const int32_t* __restrict__ history,
              const int32_t* __restrict__ tables, int num_tables,
-             int32_t* __restrict__ x, int num_blocks, int block_len,
-             bool vec) {
+             int32_t* __restrict__ x,
+             const int64_t* __restrict__ out_off, int num_blocks,
+             int block_len, bool vec) {
   extern __shared__ __align__(16) int32_t tiles[];  // [kBufs][kRows][kStride]
 
   const int warp = threadIdx.x >> 5;
@@ -163,13 +208,22 @@ recon_kernel(const int32_t* __restrict__ za, const int32_t* __restrict__ zb,
   const int pieces = (block_len + kChunk - 1) / kChunk;
 
   if (warp == kMover) {
+    // the flat form's row table: row q's output and its n
+    __shared__ int32_t* row_x[kRows];
+    __shared__ int row_lim[kRows];
+    const bool flat = out_off != nullptr;
     const int32_t* my_z = za;
     if (lane < rows) {
       const int s = src ? src[mine] : mine;
       my_z = s >= 0 ? za + static_cast<size_t>(s) * block_len
                     : zb + static_cast<size_t>(-1 - s) * block_len;
+      if (flat) {
+        row_x[lane] = x + out_off[mine];
+        row_lim[lane] = max(0, min(n[mine], block_len));
+      }
     }
-    int32_t* xb = x + static_cast<size_t>(row0) * block_len;
+    __syncwarp();
+    int32_t* xb = flat ? x : x + static_cast<size_t>(row0) * block_len;
     load_piece(tiles, my_z, rows, block_len, 0, vec);
     if (pieces > 1)
       load_piece(tiles + kTileWords, my_z, rows, block_len, kChunk, vec);
@@ -180,9 +234,12 @@ recon_kernel(const int32_t* __restrict__ za, const int32_t* __restrict__ zb,
     for (int p = 0; p < pieces; ++p) {
       // the walker walks piece p; piece p - 1 is done with, and its buffer
       // takes piece p + 2 once it is stored
-      if (p >= 1)
-        store_piece(tiles + (p - 1) % kBufs * kTileWords, xb, rows, block_len,
-                    (p - 1) * kChunk, vec);
+      if (p >= 1 && flat)
+        store_piece_flat(tiles + (p - 1) % kBufs * kTileWords, row_x,
+                         row_lim, rows, (p - 1) * kChunk);
+      else if (p >= 1)
+        store_piece(tiles + (p - 1) % kBufs * kTileWords, xb, rows,
+                    block_len, (p - 1) * kChunk, vec);
       __syncwarp();
       if (p + 2 < pieces)
         load_piece(tiles + (p + 2) % kBufs * kTileWords, my_z, rows,
@@ -192,8 +249,12 @@ recon_kernel(const int32_t* __restrict__ za, const int32_t* __restrict__ zb,
       asm volatile("cp.async.wait_group 1;\n" ::: "memory");  // p + 1 landed
       handover();
     }
-    store_piece(tiles + (pieces - 1) % kBufs * kTileWords, xb, rows,
-                block_len, (pieces - 1) * kChunk, vec);
+    if (flat)
+      store_piece_flat(tiles + (pieces - 1) % kBufs * kTileWords, row_x,
+                       row_lim, rows, (pieces - 1) * kChunk);
+    else
+      store_piece(tiles + (pieces - 1) % kBufs * kTileWords, xb, rows,
+                  block_len, (pieces - 1) * kChunk, vec);
     return;
   }
 
@@ -252,17 +313,21 @@ recon_kernel(const int32_t* __restrict__ za, const int32_t* __restrict__ zb,
 // za [Ba, L] and zb [Bb, L] zigzag values (int32 bit patterns; zb may be
 // null), src [B] each block's row (>= 0: row of za; < 0: row -1 - src of
 // zb; null: row b of za), n, predictor, table_idx [B], history [B, 4],
-// tables [T, 4] int32 Q16 coefficients -> x [B, L] int32 samples (zero past
-// n).
+// tables [T, 4] int32 Q16 coefficients -> x int32 samples: with out_off
+// null, [B, L], zero past n; else block b's n valid samples at x +
+// out_off[b] (out_off [B] int64), nothing else written.
 extern "C" int dct_reconstruct(const void* za, const void* zb, const void* src,
                                const void* n, const void* predictor,
                                const void* table_idx, const void* history,
                                const void* tables, int num_tables, void* x,
-                               int num_blocks, int block_len, void* stream) {
+                               const void* out_off, int num_blocks,
+                               int block_len, void* stream) {
   const unsigned grid = (num_blocks + dct::kRows - 1) / dct::kRows;
+  // 16-byte loads (and the padded form's stores) where every row is aligned;
+  // the flat form picks its stores row by row
   const uintptr_t addr = reinterpret_cast<uintptr_t>(za) |
                          reinterpret_cast<uintptr_t>(zb) |
-                         reinterpret_cast<uintptr_t>(x);
+                         (out_off ? 0 : reinterpret_cast<uintptr_t>(x));
   const bool vec = block_len % 4 == 0 && addr % 16 == 0;
   cudaError_t err = cudaFuncSetAttribute(
       dct::recon_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -276,6 +341,7 @@ extern "C" int dct_reconstruct(const void* za, const void* zb, const void* src,
       static_cast<const int32_t*>(table_idx),
       static_cast<const int32_t*>(history),
       static_cast<const int32_t*>(tables), num_tables,
-      static_cast<int32_t*>(x), num_blocks, block_len, vec);
+      static_cast<int32_t*>(x), static_cast<const int64_t*>(out_off),
+      num_blocks, block_len, vec);
   return static_cast<int>(cudaGetLastError());
 }

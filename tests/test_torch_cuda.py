@@ -1,10 +1,11 @@
-"""The CUDA kernels K1-K9, R, VC and CP (and the x forms of K2, K3, K5a and K6,
-the words forms of K4 and K5b, K5a's codes form, K4's slot form, and K9's
-disk-order planes) against their plain twins, on the card, the launches of
-the round trips and of the block-batch codec, and the sharded path over
-two shards of the card with the device guard of every launch, the
-bench (``dctpu_torch.bench``) at 256 blocks, and the program's spans
-(``dctpu_torch/trace.py``), which add no event on the device.
+"""The CUDA kernels K1-K9, R, VC and CP (and R's flat form, the x forms of
+K2, K3, K5a and K6, the words forms of K4 and K5b, K5a's codes form, K4's
+slot form, and K9's disk-order planes) against their plain twins, on the
+card, the launches of the round trips and of the block-batch codec, and
+the sharded path over two shards of the card with the device guard of
+every launch, the bench (``dctpu_torch.bench``) at 256 blocks, and the
+program's spans (``dctpu_torch/trace.py``), which add no event on the
+device.
 
 Marked ``cuda``: these tests need an NVIDIA GPU (sm_90a, with nvcc) and
 skip without one; ``python3 chip_smoke.py`` runs the same comparisons at
@@ -166,6 +167,99 @@ def test_reconstruct_range_matches_twin_on_card(cuda, L):
     unaligned = shifted[1:].view(first.shape)  # 4 bytes past the allocation
     _same((reconstruct.reconstruct(unaligned, *args, src=src, z1=second),),
           (want,))
+
+
+@pytest.mark.parametrize("L", [4096, 300, 129, 128])
+def test_reconstruct_flat_matches_twin_on_card(cuda, L):
+    """R's flat form: each block's valid samples at its offset, against the
+    twin's, through both coder groups; the offsets the prefix sums of n
+    with tails of every length mod 4, and the same 1 and 3 samples on, so
+    that rows start off 16-byte alignment and end in part of a 16-byte
+    group."""
+    z, _, h, n, _ = (t.to(cuda) for t in _inputs(L, 37))
+    B = z.shape[0]
+    n[5::3] = (torch.arange(5, B, 3, device=cuda) * 7 % L).to(torch.int32)
+    pred = (torch.arange(B, device=cuda) % 3).to(torch.int32)
+    table_idx = (torch.arange(B, device=cuda) // 3 % len(TABLES)).to(torch.int32)
+    coeffs = torch.tensor(TABLES, dtype=torch.int32, device=cuda)
+    first, second, src = chip_smoke.split_groups(z, seed=L + 1)
+    args = (first, n, pred, table_idx, h, coeffs)
+    off = torch.cumsum(n.long(), 0) - n.long()
+    total = int(n.sum())
+    assert bool((off % 4 != 0).any()) and bool((n % 4 != 0).any())
+    padded = reconstruct.reconstruct_range_plain(*args, src, second)
+    reconstruct.reconstruct.flat_launches = 0
+    for shift in (0, 1, 3):
+        got = reconstruct.reconstruct(*args, src=src, z1=second,
+                                      out_off=off + shift, out_len=total + shift)
+        want = reconstruct.flat_plain(padded, n, off + shift, total + shift)
+        assert got.shape == (total + shift,)
+        _same((got[shift:],), (want[shift:],))  # the first `shift` are no block's
+    assert reconstruct.reconstruct.flat_launches == 3
+
+
+def test_decompress_flat_downloads_the_valid_samples_on_card(cuda, monkeypatch):
+    """A headend-shaped decompress_flat (meter-days of 96 reads at L=128)
+    in three ranges: each range's R writes only its valid samples, flat,
+    on the card, the host downloads exactly those (Σn samples in all,
+    none of the blocks' padding), with one sync.download a range."""
+    streams, ids, cads = synth_corpus(3000, 96, seed=29, cumulative_frac=0.25)
+    data = write_frame(api.compress(streams, CodecConfig(block_len=128,
+                                                          coder="adaptive"),
+                                    ids, cads, device=cuda))
+    frame = read_frame(data)
+    seen = []
+    inner = api.decode_flat
+
+    def watched(*args, **kwargs):
+        soff, ranges = inner(*args, **kwargs)
+
+        def each():
+            for x, s0, s1, stage in ranges:
+                seen.append((x.device.type, x.numel(), s1 - s0))
+                yield x, s0, s1, stage
+        return soff, each()
+
+    monkeypatch.setattr(api, "decode_flat", watched)
+
+    def decode_():
+        return api.decompress_flat(frame, device=cuda, chunk_blocks=1000,
+                                   stage_ms={})
+
+    decode_()  # warm-up
+    seen.clear()
+    reconstruct.reconstruct.flat_launches = 0
+    (flat, lens), _, syncs = _profiled(decode_)
+    np.testing.assert_array_equal(flat, np.concatenate(streams))
+    assert lens.tolist() == [96] * 3000
+    assert [(d, m) for d, m, _ in seen] == [("cuda", m) for _, _, m in seen]
+    assert sum(m for _, m, _ in seen) == flat.size == 3000 * 96
+    assert len(seen) == 3 == reconstruct.reconstruct.flat_launches
+    assert syncs.count(trace.PREFIX + "sync.download") == 3
+
+
+def test_recon_kernel_is_classified_on_card(cuda):
+    """The profiler's name of R, in either form, is one that the
+    benchmark's kernel table classifies as R over all blocks."""
+    from portbench import work
+
+    z, _, h, n, _ = (t.to(cuda) for t in _inputs(300, 41))
+    B = z.shape[0]
+    pred = (torch.arange(B, device=cuda) % 3).to(torch.int32)
+    table_idx = torch.zeros(B, dtype=torch.int32, device=cuda)
+    coeffs = torch.tensor(TABLES, dtype=torch.int32, device=cuda)
+    off = torch.cumsum(n.long(), 0) - n.long()
+
+    def both():
+        reconstruct.reconstruct(z, n, pred, table_idx, h, coeffs)
+        reconstruct.reconstruct(z, n, pred, table_idx, h, coeffs,
+                                out_off=off, out_len=int(n.sum()))
+
+    both()
+    _, device, _ = _profiled(both)
+    names = [name for name in device if "recon_kernel" in name]
+    assert names and sum(device[name] for name in names) == 2
+    assert all(work.classify(name) == ("R", "all") for name in names)
 
 
 @pytest.mark.parametrize("L", [4096, 300, 100, 129, 12000])

@@ -175,3 +175,37 @@ def test_cpu_decode_goes_through_reconstruct(monkeypatch, chunk_blocks):
     assert all(np.array_equal(a, b) for a, b in zip(streams, out))
     assert calls == [b - a for a, b in ranges]
     assert len(calls) == (1 if chunk_blocks is None else -(-B // 3))
+
+
+@pytest.mark.parametrize("L", [128, 4096, 301])
+def test_flat_twin_is_the_padded_twins_valid_prefixes(L):
+    """R's flat form (out_off, out_len) on the CPU: each block's valid
+    samples at its offset. With the decode's offsets, the prefix sums of n,
+    it equals the padded form's valid prefixes concatenated, and so the
+    reference's, on both coder groups through src, tails (n < L) and n =
+    0; with gaps between the blocks each still lands at its own offset."""
+    z, n, pred, table_idx, hist = _inputs(L, seed=11)
+    want_rows = _reference(z, n, pred, table_idx, hist)
+    first, second, src = split_groups(torch.from_numpy(z.view(np.int32)), L + 1)
+    coeffs = torch.from_numpy(TABLES.astype(np.int32))
+    heads = [torch.from_numpy(a) for a in (n, pred, table_idx, hist)]
+    args = (first, *heads, coeffs)
+    padded = reconstruct.reconstruct(*args, src=src, z1=second).numpy()
+    assert np.array_equal(padded, want_rows)
+    assert (n < L).any() and (n == 0).any() and (n == L).any()
+    off = np.cumsum(n, dtype=np.int64) - n
+    flat = reconstruct.reconstruct(*args, src=src, z1=second,
+                                   out_off=torch.from_numpy(off),
+                                   out_len=int(n.sum()))
+    assert flat.dtype == torch.int32 and flat.shape == (int(n.sum()),)
+    prefixes = [padded[b, : n[b]] for b in range(n.size)]
+    assert np.array_equal(flat.numpy(), np.concatenate(prefixes))
+    gaps = off + 3 * np.arange(n.size)  # 3 samples of no block after each
+    spread = reconstruct.reconstruct(*args, src=src, z1=second,
+                                     out_off=torch.from_numpy(gaps),
+                                     out_len=int(n.sum()) + 3 * n.size)
+    for b in range(n.size):
+        assert np.array_equal(spread[gaps[b] : gaps[b] + n[b]].numpy(), prefixes[b])
+    with pytest.raises(ValueError, match="go together"):
+        reconstruct.reconstruct(*args, src=src, z1=second,
+                                out_off=torch.from_numpy(off))
