@@ -93,7 +93,7 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      coder's default frame and each round trip bit-exact, with the
      counters set to 0 around each: every kernel of the coder's default
      path once per block range and coder group (R once per range, in its
-     padded form), no
+     flat form), no
      plain stage; then
      compress_multihost with two processes on the card, 8 streams each,
      under the "allgather" and the "files" gather, for the rice and the
@@ -101,13 +101,12 @@ Run from the repository root: ``python3 chip_smoke.py``. It
      which is the reference's frame for both), each process with its own
      time limit; dryrun_multichip over every card; an EncodeJob of two
      parts whose merge equals the adaptive frame, and one RunMetrics line
-     per coder; and the host feed: build_blocks' native flat path
-     against its numpy twin and the per-stream loop over mean stream
-     lengths 96-65536 at block lengths 128 and 4096, 65536-1048576 at
-     the bench's 128 MiB, and on the bench corpus itself (arrays equal,
-     host times, the path build_blocks takes, where the loop starts to
-     win), and the corpus cut into 16384 streams of 2048 samples (both
-     paths equal, decompress_flat equal to the input); then the
+     per coder; and the host feed: build_blocks' native feed against
+     its numpy twin over mean stream lengths 96-65536 at block lengths
+     128 and 4096, 65536-1048576 at the bench's 128 MiB, and on the
+     bench corpus itself (arrays equal, host times), and the corpus cut
+     into 16384 streams of 2048 samples (the native feed equal to its
+     twin, decompress_flat equal to the input); then the
      block-batch codec on the corpus's 8192 x 4096 blocks (phase 3f):
      encode_blocks -> decode_blocks for rice and vertical bit-exact,
      encode_blocks' rows equal to emit_blocks', kernels.pack ->
@@ -1658,10 +1657,9 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
     """The launches of a sharded round trip whose encode and decode each
     cover these block ranges, one pass per range: every kernel of the
     coder's default path once per range and coder group (K2, K6 and
-    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R, CP and
-    CP's count pass once per range, and none of the z forms, the block
-    API's forms (K4-slot, K5a-codes), R's flat form (the sharded decode
-    downloads padded blocks), K7, K8 or K9."""
+    VC-lpc once per LPC candidate too, K6-xbp and VC-xbp once), R in its
+    flat form, CP and CP's count pass once per range, and none of the z
+    forms, the block API's forms (K4-slot, K5a-codes), K7, K8 or K9."""
     rice = sum(int((coders[a:b] == 0).any()) for a, b in ranges)
     vert = sum(int((coders[a:b] == 1).any()) for a, b in ranges)
     r = len(ranges)
@@ -1674,7 +1672,7 @@ def range_launches(coder, coders, ranges, n_lpc) -> dict:
         "K6": r * (1 + n_lpc) * rice_sel,
         "K6-xbp": r * rice_sel, "K6-lpc": r * n_lpc * rice_sel, "K7": 0,
         "K8": 0, "K9": 0, "R": r, "VC-xbp": r * vert_sel,
-        "VC-lpc": r * n_lpc * vert_sel, "CP": r, "CP-count": r, "R-flat": 0,
+        "VC-lpc": r * n_lpc * vert_sel, "CP": r, "CP-count": r, "R-flat": r,
     }
 
 
@@ -1915,31 +1913,29 @@ FEED_SWEEP = (
     (BENCH_LEN, BENCH_BLOCKS * BENCH_LEN, (65536, 262144, 1048576)),
     (128, 1 << 22, (96, 512, 1024, 2048, 4096)),
 )
-FEED_PATHS = ("native", "numpy", "loop")
+FEED_PATHS = ("native", "numpy")
 
 
 def feed_times(streams, L, reps):
-    """The best of reps host times (ms) of build_blocks' flat path (the
-    native walk over the streams and the native feed from each stream's
-    buffer), the flat path's numpy twin (build_blocks_flat_plain, on the
-    concatenation it needs), and the per-stream loop; fails unless their
-    arrays are equal."""
+    """The best of reps host times (ms) of build_blocks' native feed (the
+    native walk over the streams and the build from each stream's buffer)
+    and its numpy twin (build_blocks_flat_plain, on the concatenation it
+    needs); fails unless their arrays are equal."""
     import numpy as np
 
     from dctpu_torch import native
     from dctpu_torch.codec import api
 
-    def flat_path():
+    def native_feed():
         items = tuple(streams)
         lens, addr, _ = native.stream_addresses(items)
         return api.build_blocks_at(addr, lens, L)
 
     lens = np.array([s.size for s in streams], np.int64)
     fns = {
-        "native": flat_path,
+        "native": native_feed,
         "numpy": lambda: api.build_blocks_flat_plain(np.concatenate(streams),
                                                      lens, L),
-        "loop": lambda: api.build_blocks_loop(streams, L),
     }
     ms, out = {}, {}
     for name in FEED_PATHS:
@@ -1951,21 +1947,18 @@ def feed_times(streams, L, reps):
         if name != "native":
             if not all(np.array_equal(a, b)
                        for a, b in zip(out.pop(name), out["native"])):
-                fail(f"build_blocks' {name} path differs from the native flat "
-                     f"path at L={L}")
+                fail(f"build_blocks' {name} twin differs from the native feed "
+                     f"at L={L}")
     return ms
 
 
 def host_feed_sweep(bench_streams, reps: int = 3) -> None:
-    """build_blocks' host paths (feed_times) on about ``total`` samples of
-    streams of mean length m (lengths uniform in 1..2m-1), for each
-    (L, total, m) of FEED_SWEEP, and on the bench corpus: the best of
-    ``reps`` host times of each on this machine's CPU, and the path
-    build_blocks takes; then, per block length and volume, the least mean
-    at which the loop beats the native flat path. Needs no card."""
+    """build_blocks' native feed and its numpy twin (feed_times) on about
+    ``total`` samples of streams of mean length m (lengths uniform in
+    1..2m-1), for each (L, total, m) of FEED_SWEEP, and on the bench
+    corpus: the best of ``reps`` host times of each on this machine's CPU.
+    Needs no card."""
     import numpy as np
-
-    from dctpu_torch.codec import api
 
     rng = np.random.default_rng(11)
     cases = []
@@ -1974,33 +1967,23 @@ def host_feed_sweep(bench_streams, reps: int = 3) -> None:
             lens = rng.integers(1, 2 * mean, size=max(total // mean, 1))
             flat = rng.integers(-(2**15), 2**15, size=int(lens.sum()),
                                 dtype=np.int32)
-            cases.append((L, total, mean, np.split(flat, np.cumsum(lens)[:-1])))
+            cases.append((L, mean, np.split(flat, np.cumsum(lens)[:-1])))
     mean = sum(s.size for s in bench_streams) // len(bench_streams)
-    cases.append((BENCH_LEN, BENCH_BLOCKS * BENCH_LEN, mean, list(bench_streams)))
-    crossover = {}
-    for L, total, mean, streams in cases:
+    cases.append((BENCH_LEN, mean, list(bench_streams)))
+    for L, mean, streams in cases:
         ms = feed_times(streams, L, reps)
-        lens = np.array([s.size for s in streams], np.int64)
-        takes = "flat" if api.takes_flat_path(lens) else "loop"
-        if ms["loop"] < ms["native"]:
-            crossover.setdefault(f"L={L}, {total} samples", mean)
         print(f"host feed L={L}, {len(streams)} streams of mean {mean} "
-              f"samples: native flat path {ms['native']:.2f} ms, numpy flat "
-              f"path {ms['numpy']:.2f} ms (with the concatenation), loop "
-              f"{ms['loop']:.2f} ms (best of {reps}, host times of the card "
-              f"machine's CPU), arrays equal; build_blocks takes the {takes} "
-              f"path", flush=True)
-    print("host feed sweep: the least mean stream length at which the loop "
-          "beats the native flat path, per block length and volume (none: "
-          f"the flat path wins at every mean swept): {json.dumps(crossover)}",
-          flush=True)
+              f"samples: native feed {ms['native']:.2f} ms, numpy twin "
+              f"{ms['numpy']:.2f} ms (with the concatenation; best of {reps}, "
+              "host times of the card machine's CPU), arrays equal",
+              flush=True)
 
 
 def flat_feed_check(dev, streams) -> None:
     """Phase 3e: the host feed sweep; then the 128 MiB corpus cut into
-    16384 streams of 2048 samples, whose flat-path arrays equal the
-    per-stream loop's, and decompress_flat of their adaptive frame equals
-    the concatenation. Host times are of the card machine's CPU."""
+    16384 streams of 2048 samples, whose native feed's arrays equal its
+    numpy twin's, and decompress_flat of their adaptive frame equals the
+    concatenation. Host times are of the card machine's CPU."""
     import numpy as np
 
     from dctpu_torch.codec import api
@@ -2013,10 +1996,10 @@ def flat_feed_check(dev, streams) -> None:
     t0 = time.perf_counter()
     got = api.build_blocks(short, BENCH_LEN)
     t1 = time.perf_counter()
-    want = api.build_blocks_loop(short, BENCH_LEN)
+    want = api.build_blocks_flat_plain(flat, np.full(len(short), 2048), BENCH_LEN)
     t2 = time.perf_counter()
     if not all(np.array_equal(a, b) for a, b in zip(got, want)):
-        fail("build_blocks' flat path differs from the per-stream loop")
+        fail("build_blocks' native feed differs from its numpy twin")
     frame = read_frame(write_frame(api.compress(
         short, CodecConfig(coder="adaptive"), device=dev)))
     t3 = time.perf_counter()
@@ -2028,8 +2011,8 @@ def flat_feed_check(dev, streams) -> None:
             and all(np.array_equal(a, b) for a, b in zip(split, short))):
         fail("decompress_flat of the 16384-stream frame differs from the input")
     print(f"host feed, {len(short)} streams x 2048 samples: build_blocks "
-          f"flat path {1e3 * (t1 - t0):.1f} ms (the walk and the native feed), "
-          f"per-stream loop {1e3 * (t2 - t1):.1f} ms (host times of the card "
+          f"{1e3 * (t1 - t0):.1f} ms (the walk and the native feed), numpy "
+          f"twin {1e3 * (t2 - t1):.1f} ms (host times of the card "
           f"machine's CPU), arrays equal; decompress_flat "
           f"{1e3 * (t4 - t3):.1f} ms, decompress {1e3 * (t5 - t4):.1f} ms "
           "(host clock), equal to the input", flush=True)

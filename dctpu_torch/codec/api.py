@@ -70,14 +70,12 @@ DEFAULT_CHUNK_BLOCKS = 2048  # the reference's, and the sharded paths' default
 # 105 bytes a sample, here with a margin of half again.
 DEVICE_BYTES_PER_SAMPLE = 160
 DEVICE_SHARE = 4
-# build_blocks takes the flat path below this mean stream length (samples),
-# and decompress downloads the samples into one array there, and straight
-# into each stream's own array from it on:
-# chip_smoke.py's host feed sweep on an H100 host's 8 CPUs (PERF.md §6)
-# puts the crossover of the native flat path and the per-stream loop
-# between 65536 (flat faster) and 262144 (loop faster) at 128 MiB, and
-# above 65536 at 16 MiB; the bench's 16 streams of 2 Mi samples stay on
-# the loop
+# decompress downloads the samples of streams shorter than this on average
+# (samples) into one array and copies each stream out of it, so that a
+# million streams make no million device copies; longer ones go straight
+# into each stream's own array, touched ahead on _TOUCH_THREADS. The value
+# was measured as the host feed's switch (chip_smoke.py, PERF.md §6) and is
+# kept for the decode: no cell sits near it (96 and 525,600 samples)
 _FLAT_PATH_MAX_MEAN_LEN = 131072
 # decompress makes the arrays of long streams on this many host threads,
 # each touched one sample a 4 KiB page, ahead of the copies into them, so
@@ -106,27 +104,26 @@ def build_blocks(
 
     One native walk over the streams (``native.stream_addresses``) finds
     each stream's length and, where the stream can be read in place, its
-    samples. Then two host paths that give the same arrays:
-    :func:`build_blocks_at` (the native host feed, C++ on host threads,
-    from each stream's own buffer) for streams shorter than
-    ``_FLAT_PATH_MAX_MEAN_LEN`` samples on average, with every stream the
-    walk could not read in place cast by ``np.asarray(s, np.int32).ravel()``
-    first (span ``feed.cast``); and :func:`build_blocks_loop` for longer
-    ones. The reference picks its flat path from 256 streams on, by its own
-    host's timings."""
+    samples; every stream the walk could not read in place is cast by
+    ``np.asarray(s, np.int32).ravel()`` (span ``feed.cast``); then
+    :func:`build_blocks_at` (the native host feed, C++ on host threads)
+    builds the blocks from each stream's own buffer, for every batch."""
+    return _feed(streams, block_len)[1:]
+
+
+def _feed(streams, block_len: int):
+    """(lens int64 [S], then :func:`build_blocks`' five arrays): the
+    stream lengths of the feed's one walk beside the blocks."""
     with span("feed.gather"):
         # a tuple holds every stream alive while the build reads it
         items = streams if type(streams) is tuple else tuple(streams)
         lens, addr, marked = native.stream_addresses(items)
         for i in marked.tolist():
             lens[i] = np.asarray(items[i]).size
-        flat = takes_flat_path(lens)
-        if flat and marked.size:
+        if marked.size:
             with span("feed.cast"):
                 cast = _cast(items, marked, lens, addr)
-    if not flat:
-        return build_blocks_loop(items, block_len)
-    return build_blocks_at(addr, lens, block_len)  # cast lives till it returns
+    return (lens, *build_blocks_at(addr, lens, block_len))  # cast lives till here
 
 
 def _cast(items, marked, lens, addr) -> List[np.ndarray]:
@@ -142,41 +139,6 @@ def _cast(items, marked, lens, addr) -> List[np.ndarray]:
         addr[i] = a.ctypes.data
         cast.append(a)
     return cast
-
-
-def takes_flat_path(lens: np.ndarray) -> bool:
-    """Whether :func:`build_blocks` takes the flat path for streams of
-    these lengths: a mean below ``_FLAT_PATH_MAX_MEAN_LEN`` samples."""
-    return bool(lens.sum() < _FLAT_PATH_MAX_MEAN_LEN * lens.size)
-
-
-def build_blocks_loop(
-    streams: Sequence[np.ndarray], block_len: int
-) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
-    """:func:`build_blocks` by one copy per stream."""
-    with span("feed.loop"):
-        L = block_len
-        lens = [int(np.asarray(s).size) for s in streams]
-        nb, first = plan_blocks(lens, L)
-        B = int(nb.sum())
-        x = np.zeros((B, L), dtype=np.int32)
-        n = np.zeros(B, dtype=np.int32)
-        hist = np.zeros((B, HISTORY_LEN), dtype=np.int32)
-        for si, s in enumerate(streams):
-            s = np.asarray(s, dtype=np.int32)
-            ns, k, f = s.size, int(nb[si]), int(first[si])
-            if k == 0:
-                continue
-            buf = np.zeros(k * L, dtype=np.int32)
-            buf[:ns] = s
-            x[f : f + k] = buf.reshape(k, L)
-            n[f : f + k] = L
-            n[f + k - 1] = ns - (k - 1) * L
-            starts = np.arange(k, dtype=np.int64) * L
-            for j in range(HISTORY_LEN):
-                idx = starts - 1 - j
-                hist[f : f + k, j] = np.where(idx >= 0, s[np.maximum(idx, 0)], 0)
-        return x, n, hist, nb, first
 
 
 def build_blocks_at(
@@ -268,9 +230,8 @@ def build_blocks_flat_plain(
     return x, n, hist, nb, first
 
 
-def _stream_metas(streams, stream_ids, cadences, nb, first) -> StreamDir:
-    S = len(streams)
-    lens = np.fromiter((np.asarray(s).size for s in streams), np.int64, S)
+def _stream_metas(lens, stream_ids, cadences, nb, first) -> StreamDir:
+    S = lens.size
     return StreamDir(
         stream_id=(
             np.asarray(stream_ids, np.uint64)
@@ -438,7 +399,7 @@ def encode_frame(
     L = cfg.block_len
     host = Stages(stage_ms, "cpu")
     with host("host_build_blocks"):
-        x_h, n_h, hist_h, nb, first = build_blocks(streams, L)
+        lens, x_h, n_h, hist_h, nb, first = _feed(streams, L)
     stages = [Stages(stage_ms, d) for d in devices]
     chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     parts = []
@@ -470,7 +431,7 @@ def encode_frame(
                 coder=coder.astype(np.uint8),
             )
         with span("assembly.stream_dir"):
-            sdir = _stream_metas(streams, stream_ids, cadences, nb, first)
+            sdir = _stream_metas(lens, stream_ids, cadences, nb, first)
         frame = Frame(
             block_len=L,
             streams=sdir,
@@ -527,18 +488,29 @@ def decompress(
     the port has one decode path, K5b and K4 then R, and runs it for each
     of them. As in the reference, a RICE group raises ValueError for any
     other name. ``chunk_blocks`` bounds the blocks per pass (default: one
-    pass on the CPU, :func:`range_blocks` on a card).
+    pass on the CPU, :func:`range_blocks` on a card)."""
+    return decode_frame(frame, [device], stage_ms, chunk_blocks, backend)
 
-    R writes each range's samples in stream order (:func:`decode_flat`),
-    and the host takes them by the feed's switch (:func:`takes_flat_path`):
-    streams long on average each get their own array, made and its pages
-    touched on ``_TOUCH_THREADS`` host threads ahead of the copies, and
-    filled by one copy from the device per range it spans (span
-    ``download.streams``); short ones are downloaded into one array, then
-    copied out of it, so that a million streams make no million device
-    copies."""
+
+def decode_frame(
+    frame: Frame,
+    devices,
+    stage_ms: dict | None,
+    chunk_blocks: int | None,
+    backend: str | None,
+) -> List[np.ndarray]:
+    """Frame -> streams, each range of ``chunk_blocks`` blocks cut into one
+    shard per device of ``devices`` (:func:`decode_flat`).
+
+    R writes each shard's samples in stream order, and the host takes them
+    by the mean stream length (:func:`takes_flat_path`): streams long on
+    average each get their own array, made and its pages touched on
+    ``_TOUCH_THREADS`` host threads ahead of the copies, and filled by one
+    copy from the device per shard it spans (span ``download.streams``);
+    short ones are downloaded into one array, then copied out of it, so
+    that a million streams make no million device copies."""
     host = Stages(stage_ms, "cpu")
-    soff, ranges = decode_flat(frame, device, stage_ms, chunk_blocks, backend)
+    soff, ranges = decode_flat(frame, devices, stage_ms, chunk_blocks, backend)
     with host("host_split_streams"):
         lens, starts = _stream_samples(frame, soff)
     if takes_flat_path(lens):
@@ -558,6 +530,12 @@ def decompress(
                     dst = out[i].result()[a - t : b - t]
                     torch.from_numpy(dst).copy_(x[a - s0 : b - s0])
         return [f.result() for f in out]
+
+
+def takes_flat_path(lens: np.ndarray) -> bool:
+    """Whether :func:`decompress` downloads streams of these lengths into
+    one flat array: a mean below ``_FLAT_PATH_MAX_MEAN_LEN`` samples."""
+    return bool(lens.sum() < _FLAT_PATH_MAX_MEAN_LEN * lens.size)
 
 
 def _fresh(k: int) -> np.ndarray:
@@ -590,15 +568,6 @@ def _stream_samples(frame: Frame, soff: np.ndarray):
     return lens, soff[first]
 
 
-def split_streams(xs: np.ndarray, streams) -> List[np.ndarray]:
-    """[B, L] decoded blocks -> one array per stream of the directory."""
-    out = []
-    for s in streams:
-        flat = xs[s.first_block : s.first_block + s.num_blocks].reshape(-1)
-        out.append(flat[: s.num_samples].copy())
-    return out
-
-
 def decompress_flat(
     frame: Frame,
     device="cuda",
@@ -612,7 +581,7 @@ def decompress_flat(
     the streams' samples. R writes them so on the device
     (:func:`decode_flat`), and each range's download lands in its slice of
     the one output array."""
-    soff, ranges = decode_flat(frame, device, stage_ms, chunk_blocks, backend)
+    soff, ranges = decode_flat(frame, [device], stage_ms, chunk_blocks, backend)
     flat = _download_flat(soff, ranges)
     with Stages(stage_ms, "cpu")("host_flatten"):
         if isinstance(frame.streams, StreamDir):
@@ -623,7 +592,7 @@ def decompress_flat(
 
 
 def _download_flat(soff: np.ndarray, ranges) -> np.ndarray:
-    """The samples of :func:`decode_flat`'s ranges, each downloaded into its
+    """The samples of :func:`decode_flat`'s shards, each downloaded into its
     slice of one host array of soff[-1] samples."""
     flat = np.empty(int(soff[-1]), np.int32)
     for x, s0, s1, stage in ranges:
@@ -656,16 +625,14 @@ def _check_block_table(frame: Frame) -> None:
 
 
 def decode_range(
-    frame: Frame, off_h: np.ndarray, coeffs: torch.Tensor, b0: int, b1: int,
-    backend: str | None = None, stage=None, soff: np.ndarray | None = None,
+    frame: Frame, off_h: np.ndarray, soff: np.ndarray, coeffs: torch.Tensor,
+    b0: int, b1: int, backend: str | None = None, stage=None,
 ):
-    """Blocks b0..b1 of the frame -> ([b1 - b0, L] decoded blocks, zeros
-    past n, on coeffs' device; K4's flags for ``vdec.raise_if_bad``, or
-    None): each coder group decoded by its kernel, then one R over the
-    whole range, which writes every output row in block order. With soff
-    (the exclusive prefix sum of the frame's n, [B + 1] int64), R's flat
-    form: the range's soff[b1] - soff[b0] valid samples, block b's at
-    soff[b] - soff[b0], in place of the blocks.
+    """Blocks b0..b1 of the frame -> (their soff[b1] - soff[b0] valid
+    samples on coeffs' device, block b's at soff[b] - soff[b0]; K4's flags
+    for ``vdec.raise_if_bad``, or None): each coder group decoded by its
+    kernel, then one R over the whole range in its flat form. soff: the
+    exclusive prefix sum of the frame's n, [B + 1] int64.
 
     Only the range's compact words, [off_h[b0], off_h[b1]), cross to the
     device, with each block's start rebased to them; each coder group's
@@ -708,8 +675,7 @@ def decode_range(
             )
         }
         heads["start"] = torch.from_numpy(off_h[b0:b1] - w0).to(device)
-        if soff is not None:
-            heads["out_off"] = torch.from_numpy(soff[b0:b1] - soff[b0]).to(device)
+        heads["out_off"] = torch.from_numpy(soff[b0:b1] - soff[b0]).to(device)
         groups = [(gname, torch.from_numpy(idx_h).to(device))
                   for gname, idx_h in groups]
     zs, bad = [], None
@@ -720,74 +686,36 @@ def decode_range(
                                 gname)
         bad = flags if flags is not None else bad
         zs.append(z)
-    flat = {} if soff is None else {"out_off": heads["out_off"],
-                                     "out_len": int(soff[b1] - soff[b0])}
     if not zs:  # an empty range
-        shape = (0, L) if soff is None else (0,)
-        return torch.empty(shape, dtype=torch.int32, device=device), bad
+        return torch.empty(0, dtype=torch.int32, device=device), bad
     with stage("reconstruct"):
         xs = reconstruct(zs, heads["src"], heads["n"], heads["predictor"],
-                         heads["table_idx"], heads["history"], coeffs, **flat)
+                         heads["table_idx"], heads["history"], coeffs,
+                         out_off=heads["out_off"],
+                         out_len=int(soff[b1] - soff[b0]))
     return xs, bad
 
 
-def decode_blocks_array(
+def decode_flat(
     frame: Frame,
     devices,
     stage_ms: dict | None = None,
     chunk_blocks: int | None = None,
     backend: str | None = None,
-) -> np.ndarray:
-    """Frame -> [B, L] decoded blocks (zeros past n), each range of
-    ``chunk_blocks`` blocks cut into one shard per device of ``devices``:
-    every shard of a range is launched before the first host read (K4's
-    flags, then the downloads), so the shards of a range overlap across
-    devices."""
-    L = frame.block_len
-    B = frame.blocks.num_blocks
-    with Stages(stage_ms, "cpu")("host_block_table"):
-        _check_block_table(frame)
-        off_h = frame.blocks.word_offsets(L)
-    tables = [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]]
-    coeffs = [torch.tensor(tables, dtype=torch.int32, device=d) for d in devices]
-    stages = [Stages(stage_ms, d) for d in devices]
-    chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
-    ranges = block_ranges(B, chunk_blocks)
-    out = None if len(ranges) == 1 and len(devices) == 1 else np.empty((B, L), np.int32)
-    for c0, c1 in ranges:
-        shards = shard_ranges(c0, c1, len(devices))
-        res = [decode_range(frame, off_h, coeffs[i], a, b, backend, stages[i])
-               for i, a, b in shards]
-        for _, bad in res:
-            raise_if_bad(bad)
-        for (x, _), (i, a, b) in zip(res, shards):
-            with stages[i]("download"), span("sync.download"):
-                if out is None:
-                    out = x.cpu().numpy()
-                else:  # straight into the output, no second host copy
-                    torch.from_numpy(out[a:b]).copy_(x)
-    for stage in stages:
-        stage.finish()
-    return out
-
-
-def decode_flat(
-    frame: Frame,
-    device,
-    stage_ms: dict | None = None,
-    chunk_blocks: int | None = None,
-    backend: str | None = None,
 ):
-    """:func:`decode_blocks_array`'s flat sibling, on one device: frame ->
-    (soff, ranges). soff [B + 1] int64 is the exclusive prefix sum of the
-    blocks' n, block b's first sample among all blocks' valid samples in
-    block order (for a frame of blocks in stream order, the streams'
-    samples concatenated). ranges yields, for each range of
-    ``chunk_blocks`` blocks, once K4's flags are checked, (x, s0, s1,
-    stage): x the range's samples soff[b0]..soff[b1] on the device, as R's
-    flat form writes them, and the device's ``Stages`` for the caller's
-    ``download`` of them, which comes before the next range is launched.
-    The stages' times are added once the last range is taken."""
+    """Frame -> (soff, shards), each range of ``chunk_blocks`` blocks cut
+    into one shard per device of ``devices``, as :func:`encode_frame` cuts
+    them. soff [B + 1] int64 is the exclusive prefix sum of the blocks' n,
+    block b's first sample among all blocks' valid samples in block order
+    (for a frame of blocks in stream order, the streams' samples
+    concatenated). Every shard of a range is launched before the first
+    host read, K4's flags of each shard in turn, so the shards of a range
+    overlap across devices; then shards yields, in block order, (x, s0,
+    s1, stage) for each shard of blocks a..b: x its samples s0 = soff[a]
+    to s1 = soff[b] on its device, as R's flat form writes them, and its
+    device's ``Stages`` for the caller's ``download`` of them, which comes
+    before the next range is launched. The stages' times are added once
+    the last shard is taken."""
     L = frame.block_len
     B = frame.blocks.num_blocks
     with Stages(stage_ms, "cpu")("host_block_table"):
@@ -796,16 +724,21 @@ def decode_flat(
         soff = np.zeros(B + 1, np.int64)
         np.cumsum(frame.blocks.n, out=soff[1:])
     tables = [list(t.coeffs) for t in frame.tables] or [[0, 0, 0, 0]]
-    coeffs = torch.tensor(tables, dtype=torch.int32, device=device)
-    stage = Stages(stage_ms, device)
-    ranges = block_ranges(B, range_blocks(chunk_blocks, device_memory([device]), L))
+    coeffs = [torch.tensor(tables, dtype=torch.int32, device=d) for d in devices]
+    stages = [Stages(stage_ms, d) for d in devices]
+    chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
 
     def decoded():
-        for b0, b1 in ranges:
-            x, bad = decode_range(frame, off_h, coeffs, b0, b1, backend, stage,
-                                  soff)
-            raise_if_bad(bad)
-            yield x, int(soff[b0]), int(soff[b1]), stage
-        stage.finish()
+        for c0, c1 in block_ranges(B, chunk_blocks):
+            shards = shard_ranges(c0, c1, len(devices))
+            res = [decode_range(frame, off_h, soff, coeffs[i], a, b, backend,
+                                stages[i])
+                   for i, a, b in shards]
+            for _, bad in res:
+                raise_if_bad(bad)
+            for (x, _), (i, a, b) in zip(res, shards):
+                yield x, int(soff[a]), int(soff[b]), stages[i]
+        for stage in stages:
+            stage.finish()
 
     return soff, decoded()

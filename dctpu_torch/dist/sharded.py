@@ -64,9 +64,8 @@ def decompress_sharded(
 ) -> List[np.ndarray]:
     """Frame -> the streams of ``decompress``, each chunk sharded over
     ``mesh``; each shard uploads only its blocks' compact words."""
-    xs = api.decode_blocks_array(frame, make_mesh(mesh), stage_ms, chunk_blocks,
-                                 backend)
-    return api.split_streams(xs, frame.streams)
+    return api.decode_frame(frame, make_mesh(mesh), stage_ms, chunk_blocks,
+                            backend)
 
 
 # ---------------------------------------------------- the block functions

@@ -20,8 +20,7 @@ The names, by where they are opened:
   ``host_frame_assembly``; ``host_block_table``, ``decode_<coder>``,
   ``reconstruct``, ``host_split_streams``, ``host_flatten``), inside them
   the host feed's ``feed.gather`` (with ``feed.cast`` inside it when a
-  stream has to be cast to int32), ``feed.native`` and ``feed.loop``, the
-  assembly's ``assembly.columns`` and ``assembly.stream_dir``, and
+  stream has to be cast to int32) and ``feed.native``, the assembly's ``assembly.columns`` and ``assembly.stream_dir``, and
   ``download.streams``, a range's copies straight into the streams' own
   arrays (``decompress`` of long streams);
 * ``format/frame.py``: ``write_frame`` with ``.tables``, ``.payload``,

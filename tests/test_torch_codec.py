@@ -355,21 +355,25 @@ def test_block_api_names_match_the_reference():
 
 def test_decode_range_matches_reference_decode(frames512):
     """decode_range on the CPU, over ranges that hold both coder groups, the
-    whole batch and an empty range, equals the reference's decoded blocks."""
+    whole batch and an empty range, equals the reference's decoded blocks'
+    valid samples in block order (R's flat form)."""
     ref_bytes = frames512["mixed"][1]
     want = ref_api._decode_blocks_array(ref_read_frame(ref_bytes))
     frame = read_frame(ref_bytes)
     B, L = frame.blocks.num_blocks, frame.block_len
     off_h = frame.blocks.word_offsets(L)
+    n = frame.blocks.n.astype(np.int64)
+    soff = np.concatenate([[0], np.cumsum(n)])
     coeffs = torch.tensor([list(t.coeffs) for t in frame.tables] or [[0] * 4],
                           dtype=torch.int32)
     coders = frame.blocks.coder_arr()
     switch = int(np.nonzero(coders[1:] != coders[:-1])[0][-1])  # last change
     for b0, b1 in ((0, B), (1, B - 2), (switch, switch + 2), (4, 4)):
         assert b0 == b1 or set(coders[b0:b1].tolist()) == {0, 1}
-        xs, bad = api.decode_range(frame, off_h, coeffs, b0, b1)
+        xs, bad = api.decode_range(frame, off_h, soff, coeffs, b0, b1)
         assert bad is None and xs.dtype == torch.int32
-        assert np.array_equal(xs.numpy(), want[b0:b1])
+        valid = np.arange(L) < n[b0:b1, None]
+        assert np.array_equal(xs.numpy(), want[b0:b1][valid])
 
 
 def test_range_blocks_bounds_the_default_pass():

@@ -1,8 +1,9 @@
 """The port on the shapes of the Dataport bulk archive (portbench's
 ``dataport-1min-bulk`` configuration, ``dataport.bulk`` cell), on the CPU:
-homes long enough to take the per-stream loop feed, each 35 blocks of 4096
-with a 736-sample tail and histories carried across block boundaries, coded
-at FORMAT's defaults. The frame is held byte for byte to the benchmark's
+homes long enough for ``decompress`` to download each into its own array,
+built by the native feed into 35 blocks of 4096 each with a 736-sample
+tail and histories carried across block boundaries, coded at FORMAT's
+defaults. The frame is held byte for byte to the benchmark's
 plain reference, and ``decompress`` gives each home back."""
 
 import functools
@@ -16,7 +17,7 @@ from dctpu_torch.codec import api
 from dctpu_torch.format.frame import read_frame, write_frame
 from portbench import check, loop, program, registry
 
-HOMES, SAMPLES = 3, 140000  # a mean of 140,000 >= the loop switch's 131,072
+HOMES, SAMPLES = 3, 140000  # a mean of 140,000 >= the decode's switch, 131,072
 CFG = dict(registry.config("dataport-1min-bulk"), num_streams=HOMES,
            samples_per_stream=SAMPLES)
 SEED = 2**31 + 2020
@@ -41,11 +42,18 @@ def _frame_bytes():
     return write_frame(_compress())
 
 
-def test_the_homes_take_the_loop_feed_in_many_blocks_with_a_tail():
+def test_the_homes_take_the_loop_feed_in_many_blocks_with_a_tail(monkeypatch):
+    """The homes take the native feed, which is the only one, and are
+    long enough for decompress's own arrays."""
     inp = _batch()
     assert len(inp.streams) == HOMES and all(s.size == SAMPLES for s in inp.streams)
     assert not api.takes_flat_path(inp.lens)
-    nb, _ = api.plan_blocks(inp.lens, CFG["block_len"])
+    taken, real = [], api.build_blocks_at
+    monkeypatch.setattr(api, "build_blocks_at",
+                        lambda addr, lens, L: taken.append(lens.tolist())
+                        or real(addr, lens, L))
+    nb = api.build_blocks(inp.streams, CFG["block_len"])[3]
+    assert taken == [[SAMPLES] * HOMES]
     assert nb.tolist() == [35] * HOMES
     n = read_frame(_frame_bytes()).blocks.n.astype(np.int64).reshape(HOMES, 35)
     assert (n[:, :-1] == 4096).all() and (n[:, -1] == 736).all()
@@ -69,8 +77,8 @@ def test_the_round_trip_opens_the_loop_feed_and_the_split():
         frame = _compress()
         api.decompress(read_frame(write_frame(frame)), device="cpu")
     names = {e.name() for e in prof.profiler.kineto_results.events()}
-    assert {"dctpu.feed.loop", "dctpu.host_split_streams"} <= names
-    assert not {"dctpu.feed.native", "dctpu.host_flatten"} & names
+    assert {"dctpu.feed.native", "dctpu.host_split_streams"} <= names
+    assert not {"dctpu.feed.loop", "dctpu.host_flatten"} & names
     assert trace.PREFIX + "feed.gather" in names
 
 

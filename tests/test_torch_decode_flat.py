@@ -1,9 +1,10 @@
-"""The decode's host tail on the CPU: R writes each range's valid samples in
+"""The decode's host tail on the CPU: R writes each shard's valid samples in
 stream order (``api.decode_flat``), ``decompress_flat`` downloads them into
-one array and ``decompress`` takes them by the feed's switch, into one
-array and out of it for short streams, straight into each stream's own
-array for long ones. Both against the reference decoder's arrays
-(``dctpu.codec.api``), with ranges that cut streams."""
+one array and ``decompress`` and ``decompress_sharded`` take them by the
+mean stream length, into one array and out of it for short streams,
+straight into each stream's own array for long ones. Both against the
+reference decoder's arrays (``dctpu.codec.api``), with ranges and shards
+that cut streams."""
 
 import functools
 
@@ -18,12 +19,15 @@ from dctpu_torch import trace
 from dctpu_torch.codec import api
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.corpus import synth_corpus
+from dctpu_torch.dist import decompress_sharded
 from dctpu_torch.format import read_frame, write_frame
 
 L = 512
 CHUNKS = [None, 4, 5]  # 5 and 7 blocks a stream: ranges of 4 and 5 cut them
-# the feed's switch set so that each stream is short, or long
+# the decode's switch set so that each stream is short, or long
 PATHS = {"one array": 2**40, "own arrays": 1}
+# decompress on one device, decompress_sharded over three
+MESHES = {"cpu": ["cpu"], "cpu*3": ["cpu"] * 3}
 
 
 @functools.lru_cache(maxsize=None)
@@ -46,13 +50,20 @@ def _switch(monkeypatch, path):
     monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", PATHS[path])
 
 
+@pytest.mark.parametrize("mesh", list(MESHES))
 @pytest.mark.parametrize("path", list(PATHS))
 @pytest.mark.parametrize("chunk_blocks", CHUNKS)
 @pytest.mark.parametrize("coder", ["rice", "vertical", "adaptive"])
-def test_decompress_equals_the_reference(monkeypatch, coder, chunk_blocks, path):
+def test_decompress_equals_the_reference(monkeypatch, coder, chunk_blocks, path,
+                                         mesh):
     streams, data, want, _ = _case(coder)
     _switch(monkeypatch, path)
-    got = api.decompress(read_frame(data), device="cpu", chunk_blocks=chunk_blocks)
+    if mesh == "cpu":
+        got = api.decompress(read_frame(data), device="cpu",
+                             chunk_blocks=chunk_blocks)
+    else:
+        got = decompress_sharded(read_frame(data), MESHES[mesh],
+                                 chunk_blocks=chunk_blocks)
     assert len(got) == len(want) == len(streams)
     for g, w, s in zip(got, want, streams):
         assert g.dtype == np.int32 and g.shape == w.shape
@@ -92,7 +103,7 @@ def test_the_ranges_hold_exactly_the_valid_samples(monkeypatch, chunk_blocks):
     block order: Σn samples in all, no padding."""
     streams, data, _, _ = _case("adaptive")
     frame = read_frame(data)
-    soff, ranges = api.decode_flat(frame, "cpu", chunk_blocks=chunk_blocks)
+    soff, ranges = api.decode_flat(frame, ["cpu"], chunk_blocks=chunk_blocks)
     n = frame.blocks.n.astype(np.int64)
     assert soff.tolist() == [0, *np.cumsum(n).tolist()]
     got = [(x.shape, s0, s1) for x, s0, s1, _ in ranges]

@@ -1,5 +1,5 @@
-"""The port's host feed for many streams (build_blocks_flat and its
-dispatch, decompress_flat) vs the JAX reference's, mirroring
+"""The port's host feed (build_blocks, build_blocks_flat, decompress_flat)
+vs the JAX reference's, mirroring
 tests/test_host_feed.py, build_blocks' walk over stream lists of every
 kind, and the bounded passes (chunk_blocks) and decode backend names of
 compress / decompress against the single pass.
@@ -40,7 +40,7 @@ def test_build_blocks_flat_matches_reference(L):
     flat = np.concatenate(streams)
     got = api.build_blocks_flat(flat, lens, L)
     assert _equal(got, ref_api.build_blocks_flat(flat, lens, L))
-    assert _equal(got, api.build_blocks_loop(streams, L))
+    assert _equal(got, api.build_blocks_flat_plain(flat, lens, L))
     assert _equal(got, api.build_blocks(streams, L))
     with pytest.raises(ValueError, match="samples for stream lengths"):
         api.build_blocks_flat(flat[1:], lens, L)
@@ -153,43 +153,68 @@ def test_build_blocks_raises_as_the_reference(bad):
 def _dispatch(monkeypatch, streams, L):
     """build_blocks(streams, L) -> (its arrays, the paths it took)."""
     taken = []
-    for name in ("build_blocks_at", "build_blocks_loop"):
-        real = getattr(api, name)
-        monkeypatch.setattr(api, name, lambda *a, _f=real, _n=name:
-                            taken.append(_n) or _f(*a))
+    real = api.build_blocks_at
+    monkeypatch.setattr(api, "build_blocks_at",
+                        lambda *a: taken.append("build_blocks_at") or real(*a))
     return api.build_blocks(streams, L), taken
 
 
-# a small switch keeps the dispatch tests' corpora small: the measured
-# switch (131072 samples) would need streams of hundreds of MiB
-SMALL_SWITCH = 1536
-
-
 def test_build_blocks_dispatches_flat_path(monkeypatch):
-    """Below a mean of _FLAT_PATH_MAX_MEAN_LEN samples per stream,
-    build_blocks takes the flat path: the reference's arrays."""
-    monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", SMALL_SWITCH)
+    """Short streams take the native feed: the reference's arrays."""
     rng = np.random.default_rng(4)
-    streams = _corpus(rng, 300, api._FLAT_PATH_MAX_MEAN_LEN)
+    streams = _corpus(rng, 300, 1536)
     got, taken = _dispatch(monkeypatch, streams, 128)
     assert taken == ["build_blocks_at"]
     assert _equal(got, ref_api.build_blocks(streams, 128))
 
 
 def test_build_blocks_dispatches_loop_for_long_streams(monkeypatch):
-    """From a mean of _FLAT_PATH_MAX_MEAN_LEN samples per stream on, and
-    for no streams, build_blocks takes the per-stream loop, whatever the
-    stream count: the reference's arrays."""
-    monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", SMALL_SWITCH)
+    """Streams longer on average than _FLAT_PATH_MAX_MEAN_LEN samples, and
+    no streams, take the same native feed: the reference's arrays."""
     rng = np.random.default_rng(6)
-    for n_streams in (12, 300):
-        streams = _corpus(rng, n_streams, 3 * api._FLAT_PATH_MAX_MEAN_LEN)
-        got, taken = _dispatch(monkeypatch, streams, 128)
-        assert taken == ["build_blocks_loop"]
-        assert _equal(got, ref_api.build_blocks(streams, 128))
+    lens = rng.integers(api._FLAT_PATH_MAX_MEAN_LEN, 3 * api._FLAT_PATH_MAX_MEAN_LEN,
+                        size=12)
+    streams = [rng.integers(-(2**20), 2**20, size=int(k), dtype=np.int32)
+               for k in lens]
+    assert not api.takes_flat_path(lens)
+    for L in (128, 4096):
+        got, taken = _dispatch(monkeypatch, streams, L)
+        assert taken == ["build_blocks_at"]
+        assert _equal(got, ref_api.build_blocks(streams, L))
     got, taken = _dispatch(monkeypatch, [], 128)
-    assert taken == ["build_blocks_loop"]
-    assert _equal(got, ref_api.build_blocks([], 128))
+    assert taken == ["build_blocks_at"]
+    assert all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(got, ref_api.build_blocks([], 128)))
+
+
+# a switch below the streams' mean length: the feed is the same either side
+LOW_SWITCH = 64
+
+
+def test_build_blocks_ravels_many_two_d_streams(monkeypatch):
+    """300 int32 streams of shape (2, m) at L=128: the reference's arrays
+    (its flat path ravels each stream), whatever the decode's switch."""
+    monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", LOW_SWITCH)
+    rng = np.random.default_rng(7)
+    streams = [rng.integers(-(2**20), 2**20, size=(2, int(m)), dtype=np.int32)
+               for m in rng.integers(0, 300, size=300)]
+    got = api.build_blocks(streams, 128)
+    assert all(a.dtype == b.dtype and np.array_equal(a, b) for a, b in zip(
+        got, ref_api.build_blocks(streams, 128)))
+
+
+def test_compress_of_two_d_streams_is_the_reference_frame(monkeypatch):
+    """Three streams of shape (2, 100): the reference's frame of their
+    samples in order, whatever the decode's switch."""
+    monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", LOW_SWITCH)
+    rng = np.random.default_rng(8)
+    streams = [rng.integers(-(2**20), 2**20, size=(2, 100), dtype=np.int32)
+               for _ in range(3)]
+    got = write_frame(api.compress(streams, CodecConfig(block_len=128),
+                                   device="cpu"))
+    want = ref_write_frame(ref_api.compress([s.ravel() for s in streams],
+                                            RefConfig(block_len=128)))
+    assert got == want
 
 
 def test_streamdir_frame_and_flat_decode():

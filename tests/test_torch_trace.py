@@ -33,8 +33,8 @@ ENCODE = {
 }
 FEED = {"flat": {"feed.gather": "host_build_blocks",
                  "feed.native": "host_build_blocks"},
-        "loop": {"feed.gather": "host_build_blocks",
-                 "feed.loop": "host_build_blocks"},
+        "long": {"feed.gather": "host_build_blocks",
+                 "feed.native": "host_build_blocks"},
         # one int64 stream, which the flat feed casts to int32
         "flat_cast": {"feed.gather": "host_build_blocks",
                       "feed.cast": "feed.gather",
@@ -56,15 +56,26 @@ def _corpus():
     return synth_corpus(4, 3000, seed=11)
 
 
+@functools.lru_cache(maxsize=None)
+def _long_corpus():
+    """The corpus's samples repeated into one stream longer than
+    _FLAT_PATH_MAX_MEAN_LEN samples."""
+    streams, ids, cads = _corpus()
+    flat = np.concatenate(streams)
+    return ([np.tile(flat, api._FLAT_PATH_MAX_MEAN_LEN // flat.size + 1)],
+            ids[:1], cads[:1])
+
+
 def _cfg(coder):
     return CodecConfig(block_len=256, coder=coder)
 
 
-def _round_trip(coder, stage_ms=True, chunk_blocks=None, cast=False):
+def _round_trip(coder, stage_ms=True, chunk_blocks=None, cast=False, long=False):
     """compress -> write_frame -> read_frame -> decompress_flat on the CPU:
     (frame bytes, flat samples, encode stage_ms, decode stage_ms); cast:
-    the corpus's second stream given as int64."""
-    streams, ids, cads = _corpus()
+    the corpus's second stream given as int64; long: the corpus's streams
+    as one stream longer than _FLAT_PATH_MAX_MEAN_LEN samples."""
+    streams, ids, cads = _long_corpus() if long else _corpus()
     if cast:
         streams = [streams[0], streams[1].astype(np.int64), *streams[2:]]
     enc, dec = ({}, {}) if stage_ms else (None, None)
@@ -99,13 +110,11 @@ def _sides(spans):
 
 
 @pytest.mark.parametrize("stage_ms", [True, False], ids=["stage_ms", "no_stage_ms"])
-@pytest.mark.parametrize("feed", ["flat", "loop", "flat_cast"])
+@pytest.mark.parametrize("feed", ["flat", "long", "flat_cast"])
 @pytest.mark.parametrize("coder", CODERS)
-def test_each_step_is_a_span_inside_its_parent(monkeypatch, coder, feed, stage_ms):
-    if feed == "loop":
-        monkeypatch.setattr(api, "_FLAT_PATH_MAX_MEAN_LEN", 0)
+def test_each_step_is_a_span_inside_its_parent(coder, feed, stage_ms):
     (data, _, _, _), spans = _traced(coder, stage_ms=stage_ms,
-                                     cast=feed == "flat_cast")
+                                     cast=feed == "flat_cast", long=feed == "long")
     groups = _groups(data)
     want = {"encode": {**ENCODE, **FEED[feed], **{f"emit_{g}": None for g in groups}},
             "decode": {**DECODE, **{f"decode_{g}": None for g in groups}}}
