@@ -1,18 +1,23 @@
 """DCF1 frame reader/writer (docs/FORMAT.md §5).
 
-Numpy-vectorized: the block table is parsed/serialized as a structured array in
-one pass, and per-block payload offsets come from a single prefix sum — this is
+Column-wise: the writer builds the frame in one ``bytes`` object, each byte
+written once, the directory and block-table rows straight from their columns
+and the payload copied once (``dctpu_torch/native.py``, the host library); the
+reader takes each section where it lies in its input and copies each column
+and the payload out once. The sections' CRC-32s are cut over host threads by
+their size. Per-block payload offsets come from a single prefix sum — this is
 what makes fully parallel decode possible (every block's payload location and
 warm-up history is known before any payload bit is touched).
 
 Replaces the reference C codec's serial header read/write (SURVEY.md §2.1
 "Frame/container format"; reference unavailable — see SURVEY.md §0).
 
-A copy of the module of the same path in ``dctpu``: the port never imports
-``dctpu``, whose package import pulls in jax. Its steps are spans
-(``dctpu_torch/trace.py``): ``write_frame`` with ``.tables``, ``.payload``,
-``.crc`` and ``.join``, ``read_frame`` with ``.sections``, ``.crc``,
-``.tables`` and ``.payload``.
+The port's counterpart of the module of the same path in ``dctpu``, byte for
+byte in what it writes and reads: the port never imports ``dctpu``, whose
+package import pulls in jax. Its steps are spans (``dctpu_torch/trace.py``):
+``write_frame`` with ``.tables``, ``.payload`` and ``.crc``, ``read_frame``
+with ``.sections``, ``.crc``, ``.tables`` and ``.payload``; inside either
+``.crc``, ``crc.parallel`` for each section cut over more than one thread.
 """
 
 from __future__ import annotations
@@ -23,6 +28,7 @@ from typing import List, Sequence, Tuple
 
 import numpy as np
 
+from dctpu_torch import native
 from dctpu_torch.config import LpcTable
 from dctpu_torch.constants import (
     BLOCK_HEADER_BYTES,
@@ -33,36 +39,10 @@ from dctpu_torch.constants import (
     TRAILER_BYTES,
     VERSION,
 )
-from dctpu_torch.format.crc import crc32
 from dctpu_torch.trace import span
 
-# Structured dtypes mirror docs/FORMAT.md §5 exactly (little-endian).
-STREAM_DIR_DTYPE = np.dtype(
-    [
-        ("stream_id", "<u8"),
-        ("cadence_s", "<u4"),
-        ("num_blocks", "<u4"),
-        ("num_samples", "<u8"),
-        ("first_block", "<u4"),
-        ("reserved", "<u4"),
-    ]
-)
-assert STREAM_DIR_DTYPE.itemsize == STREAM_DIR_BYTES
-
-BLOCK_HEADER_DTYPE = np.dtype(
-    [
-        ("predictor", "u1"),
-        ("k", "u1"),
-        ("n", "<u2"),
-        ("bit_len", "<u4"),
-        ("table_idx", "u1"),
-        ("coder", "u1"),
-        ("reserved", "u1", (2,)),
-        ("history", "<i4", (4,)),
-        ("reserved2", "<u4"),
-    ]
-)
-assert BLOCK_HEADER_DTYPE.itemsize == BLOCK_HEADER_BYTES
+# The directory and block-table rows (docs/FORMAT.md §5) are laid out by
+# csrc/host/frame_io.cpp (DirRow, BlockRow).
 
 _FILE_HEADER = struct.Struct("<4sHHIIQQQQQQ")
 assert _FILE_HEADER.size == FILE_HEADER_BYTES
@@ -130,25 +110,6 @@ class StreamDir:
     def __radd__(self, other):
         return list(other) + list(self)
 
-    def to_records(self) -> np.ndarray:
-        sdir = np.zeros(len(self), dtype=STREAM_DIR_DTYPE)
-        sdir["stream_id"] = self.stream_id
-        sdir["cadence_s"] = self.cadence_s
-        sdir["num_blocks"] = self.num_blocks
-        sdir["num_samples"] = self.num_samples
-        sdir["first_block"] = self.first_block
-        return sdir
-
-    @classmethod
-    def from_records(cls, sdir: np.ndarray) -> "StreamDir":
-        return cls(
-            stream_id=sdir["stream_id"].copy(),
-            cadence_s=sdir["cadence_s"].copy(),
-            num_samples=sdir["num_samples"].copy(),
-            num_blocks=sdir["num_blocks"].copy(),
-            first_block=sdir["first_block"].copy(),
-        )
-
 
 @dataclasses.dataclass
 class BlockHeaders:
@@ -208,72 +169,82 @@ def plan_blocks(stream_lengths: Sequence[int], block_len: int) -> Tuple[np.ndarr
     return nblocks, first[:-1]
 
 
+def _dir_columns(streams) -> StreamDir:
+    """The directory as columns: a StreamDir as it is, a list of StreamMeta
+    turned into columns once."""
+    if isinstance(streams, StreamDir):
+        return streams
+    return StreamDir(*(
+        np.array([getattr(s, f) for s in streams], dtype=t)
+        for f, t in (("stream_id", np.uint64), ("cadence_s", np.uint32),
+                     ("num_samples", np.uint64), ("num_blocks", np.uint32),
+                     ("first_block", np.uint32))))
+
+
+def _crc(section: np.ndarray) -> int:
+    """The section's CRC-32; cut over threads (span ``crc.parallel``) where
+    its size asks for more than one (``native.frame_threads``)."""
+    threads = native.frame_threads(section.size)
+    if threads == 1:
+        return native.crc32(section, 1)
+    with span("crc.parallel"):
+        return native.crc32(section, threads)
+
+
 def write_frame(frame: Frame) -> bytes:
+    """The frame's bytes, each written once into the one ``bytes`` object
+    returned: header, rows straight from the columns, tables, payload, then
+    the trailer of the sections' CRCs."""
     with span("write_frame"):
         nstreams = len(frame.streams)
         nblocks = frame.blocks.num_blocks
-
-        with span("write_frame.tables"):
-            if isinstance(frame.streams, StreamDir):
-                sdir = frame.streams.to_records()  # column moves, no per-stream work
-            else:
-                sdir = np.zeros(nstreams, dtype=STREAM_DIR_DTYPE)
-                for i, s in enumerate(frame.streams):
-                    sdir[i] = (s.stream_id, s.cadence_s, s.num_blocks,
-                               s.num_samples, s.first_block, 0)
-
-            btab = np.zeros(nblocks, dtype=BLOCK_HEADER_DTYPE)
-            btab["predictor"] = frame.blocks.predictor
-            btab["k"] = frame.blocks.k
-            btab["n"] = frame.blocks.n
-            btab["bit_len"] = frame.blocks.bit_len
-            btab["table_idx"] = frame.blocks.table_idx
-            btab["coder"] = frame.blocks.coder_arr()
-            btab["history"] = frame.blocks.history
-
-            tparts = [_TABLE_HEADER.pack(len(frame.tables), 0)]
-            for t in frame.tables:
-                tparts.append(_TABLE_ENTRY.pack(t.order, *t.coeffs))
-            tables_b = b"".join(tparts)
-
-            dir_b = sdir.tobytes()
-            btab_b = btab.tobytes()
-        with span("write_frame.payload"):
-            payload_b = np.ascontiguousarray(frame.payload_words, dtype="<u4").tobytes()
+        payload = np.ascontiguousarray(frame.payload_words, dtype="<u4")
 
         off_dir = FILE_HEADER_BYTES
-        off_btab = off_dir + len(dir_b)
-        off_tables = off_btab + len(btab_b)
-        off_payload = off_tables + len(tables_b)
+        off_btab = off_dir + nstreams * STREAM_DIR_BYTES
+        off_tables = off_btab + nblocks * BLOCK_HEADER_BYTES
+        off_payload = (off_tables + _TABLE_HEADER.size
+                       + len(frame.tables) * TABLE_ENTRY_BYTES)
+        off_trailer = off_payload + payload.nbytes
+        out, buf = native.new_bytes(off_trailer + TRAILER_BYTES)
+        sections = (buf[off_dir:off_btab], buf[off_btab:off_tables],
+                    buf[off_tables:off_payload], buf[off_payload:off_trailer],
+                    buf[:FILE_HEADER_BYTES])
 
-        header = _FILE_HEADER.pack(
-            MAGIC,
-            VERSION,
-            0,
-            frame.block_len,
-            nstreams,
-            nblocks,
-            off_dir,
-            off_btab,
-            off_tables,
-            off_payload,
-            len(payload_b),
-        )
+        with span("write_frame.tables"):
+            _FILE_HEADER.pack_into(
+                buf, 0, MAGIC, VERSION, 0, frame.block_len, nstreams, nblocks,
+                off_dir, off_btab, off_tables, off_payload, payload.nbytes)
+            d = _dir_columns(frame.streams)
+            native.dir_rows(sections[0], d.stream_id, d.cadence_s, d.num_blocks,
+                            d.num_samples, d.first_block)
+            b = frame.blocks
+            native.block_rows(sections[1], b.predictor, b.k, b.n, b.bit_len,
+                              b.table_idx, b.coder, b.history)
+            _TABLE_HEADER.pack_into(buf, off_tables, len(frame.tables), 0)
+            for i, t in enumerate(frame.tables):
+                _TABLE_ENTRY.pack_into(
+                    buf, off_tables + _TABLE_HEADER.size + i * TABLE_ENTRY_BYTES,
+                    t.order, *t.coeffs)
+        with span("write_frame.payload"):
+            native.copy_bytes(sections[3], payload)
         with span("write_frame.crc"):
-            trailer = _TRAILER.pack(
-                crc32(dir_b), crc32(btab_b), crc32(tables_b), crc32(payload_b),
-                crc32(header),
-            )
-        with span("write_frame.join"):
-            return b"".join([header, dir_b, btab_b, tables_b, payload_b, trailer])
+            # trailer order (FORMAT §5): directory, block table, tables,
+            # payload, header
+            _TRAILER.pack_into(buf, off_trailer, *(_crc(sec) for sec in sections))
+        return out
 
 
-def read_frame(data: bytes, verify_crc: bool = True) -> Frame:
+def read_frame(data, verify_crc: bool = True) -> Frame:
+    """The frame in ``data`` (bytes, bytearray or memoryview). Each section
+    is read where it lies in ``data``; every array of the Frame is its own
+    copy, contiguous and writable."""
     with span("read_frame"):
         # Malformed input of any shape (truncation, garbage offsets/counts) must
         # raise ValueError, never struct.error/IndexError — fuzzed in
-        # tests/test_format.py.
-        if len(data) < FILE_HEADER_BYTES:
+        # tests/test_format.py and tests/test_torch_frame.py.
+        buf = np.frombuffer(data, np.uint8)
+        if buf.size < FILE_HEADER_BYTES:
             raise ValueError("truncated DCF1 frame: short header")
         (
             magic,
@@ -287,22 +258,22 @@ def read_frame(data: bytes, verify_crc: bool = True) -> Frame:
             off_tables,
             off_payload,
             payload_bytes,
-        ) = _FILE_HEADER.unpack_from(data, 0)
+        ) = _FILE_HEADER.unpack_from(buf, 0)
         if magic != MAGIC:
             raise ValueError("bad DCF1 magic")
         if version != VERSION:
             raise ValueError(f"unsupported DCF version {version}")
 
-        def _section(off: int, size: int, name: str) -> bytes:
-            if off < 0 or size < 0 or off + size > len(data):
+        def _section(off: int, size: int, name: str) -> np.ndarray:
+            if off < 0 or size < 0 or off + size > buf.size:
                 raise ValueError(f"truncated DCF1 frame: {name} section")
-            return data[off : off + size]
+            return buf[off : off + size]
 
         with span("read_frame.sections"):
             dir_b = _section(off_dir, nstreams * STREAM_DIR_BYTES, "directory")
             btab_b = _section(off_btab, nblocks * BLOCK_HEADER_BYTES, "block_table")
             _section(off_tables, _TABLE_HEADER.size, "tables header")
-            ntables, _ = _TABLE_HEADER.unpack_from(data, off_tables)
+            ntables, _ = _TABLE_HEADER.unpack_from(buf, off_tables)
             tables_b = _section(
                 off_tables, _TABLE_HEADER.size + ntables * TABLE_ENTRY_BYTES, "tables"
             )
@@ -311,44 +282,40 @@ def read_frame(data: bytes, verify_crc: bool = True) -> Frame:
         if verify_crc:
             _section(off_payload + payload_bytes, _TRAILER.size, "trailer")
             c_dir, c_btab, c_tab, c_pay, c_hdr = _TRAILER.unpack_from(
-                data, off_payload + payload_bytes
+                buf, off_payload + payload_bytes
             )
             with span("read_frame.crc"):
                 checks = [
-                    (c_hdr, crc32(data[:FILE_HEADER_BYTES]), "header"),
-                    (c_dir, crc32(dir_b), "directory"),
-                    (c_btab, crc32(btab_b), "block_table"),
-                    (c_tab, crc32(tables_b), "tables"),
-                    (c_pay, crc32(payload_b), "payload"),
+                    (c_hdr, _crc(buf[:FILE_HEADER_BYTES]), "header"),
+                    (c_dir, _crc(dir_b), "directory"),
+                    (c_btab, _crc(btab_b), "block_table"),
+                    (c_tab, _crc(tables_b), "tables"),
+                    (c_pay, _crc(payload_b), "payload"),
                 ]
             for want, got, name in checks:
                 if want != got:
                     raise ValueError(f"CRC mismatch in {name} section")
 
         with span("read_frame.tables"):
-            sdir = np.frombuffer(dir_b, dtype=STREAM_DIR_DTYPE)
-            streams = StreamDir.from_records(sdir)  # no per-stream objects (config 5)
-
-            btab = np.frombuffer(btab_b, dtype=BLOCK_HEADER_DTYPE)
-            blocks = BlockHeaders(
-                predictor=btab["predictor"].copy(),
-                k=btab["k"].copy(),
-                n=btab["n"].copy(),
-                bit_len=btab["bit_len"].copy(),
-                table_idx=btab["table_idx"].copy(),
-                history=btab["history"].copy(),
-                coder=btab["coder"].copy(),
-            )
+            sid, cad, nblk, nsamp, first = native.dir_columns(dir_b)
+            streams = StreamDir(stream_id=sid, cadence_s=cad, num_samples=nsamp,
+                                num_blocks=nblk, first_block=first)
+            pred, k, n, bit_len, table_idx, coder, history = native.block_columns(btab_b)
+            blocks = BlockHeaders(predictor=pred, k=k, n=n, bit_len=bit_len,
+                                  table_idx=table_idx, history=history, coder=coder)
 
             tables = []
-            toff = _TABLE_HEADER.size
+            toff = off_tables + _TABLE_HEADER.size
             for _ in range(ntables):
-                order, c0, c1, c2, c3 = _TABLE_ENTRY.unpack_from(tables_b, toff)
+                order, c0, c1, c2, c3 = _TABLE_ENTRY.unpack_from(buf, toff)
                 tables.append(LpcTable(order=order, coeffs=(c0, c1, c2, c3)))
                 toff += TABLE_ENTRY_BYTES
 
         with span("read_frame.payload"):
-            payload_words = np.frombuffer(payload_b, dtype="<u4").copy()
+            if payload_bytes % 4:
+                raise ValueError("DCF1 payload is not whole u32 words")
+            payload_words = np.empty(payload_bytes // 4, dtype="<u4")
+            native.copy_bytes(payload_words, payload_b)
         return Frame(
             block_len=block_len,
             streams=streams,

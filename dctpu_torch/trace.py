@@ -23,9 +23,10 @@ The names, by where they are opened:
   stream has to be cast to int32) and ``feed.native``, the assembly's ``assembly.columns`` and ``assembly.stream_dir``, and
   ``download.streams``, a range's copies straight into the streams' own
   arrays (``decompress`` of long streams);
-* ``format/frame.py``: ``write_frame`` with ``.tables``, ``.payload``,
-  ``.crc`` and ``.join``; ``read_frame`` with ``.sections``, ``.crc``,
-  ``.tables`` and ``.payload``;
+* ``format/frame.py``: ``write_frame`` with ``.tables``, ``.payload`` and
+  ``.crc``; ``read_frame`` with ``.sections``, ``.crc``, ``.tables`` and
+  ``.payload``; inside either ``.crc``, ``crc.parallel`` for each section
+  whose CRC is cut over more than one host thread;
 * each host read of device results, ``sync.<what>``: ``sync.coders``,
   ``sync.total``, ``sync.words``, ``sync.choice``, ``sync.k`` and
   ``sync.bit_len`` of an encode range, ``sync.flags`` and

@@ -10,11 +10,11 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from dctpu_torch import trace
+from dctpu_torch import native, trace
 from dctpu_torch.codec import api
 from dctpu_torch.config import CodecConfig
 from dctpu_torch.corpus.synth import synth_corpus
-from dctpu_torch.format.frame import read_frame, write_frame
+from dctpu_torch.format.frame import BlockHeaders, Frame, StreamDir, read_frame, write_frame
 
 CODERS = ("rice", "vertical", "adaptive")
 GROUP = {0: "rice", 1: "vertical"}
@@ -29,7 +29,7 @@ ENCODE = {
     "assembly.stream_dir": "host_frame_assembly",
     "write_frame": None, "write_frame.tables": "write_frame",
     "write_frame.payload": "write_frame", "write_frame.crc": "write_frame",
-    "write_frame.join": "write_frame",
+    "crc.parallel": "write_frame.crc",
 }
 FEED = {"flat": {"feed.gather": "host_build_blocks",
                  "feed.native": "host_build_blocks"},
@@ -45,7 +45,11 @@ DECODE = {
     "read_frame.payload": "read_frame", "host_block_table": None,
     "upload": None, "reconstruct": None, "download": None,
     "sync.download": "download", "host_flatten": None,
+    "crc.parallel": "read_frame.crc",
 }
+# spans that open only for sections of at least two threads' worth of bytes
+# (native.frame_threads), which the corpus's frames are not
+LARGE_ONLY = {"crc.parallel"}
 # the reads of device results of one range on the CPU path: CP's total is
 # read on a card only, and K4's flags are checked by the CPU twin itself
 CPU_SYNCS = {"encode": 5, "decode": 1}
@@ -122,7 +126,7 @@ def test_each_step_is_a_span_inside_its_parent(coder, feed, stage_ms):
         assert groups == ["rice", "vertical"]
     for side, got in zip(("encode", "decode"), _sides(spans)):
         names = [n for n, _, _ in got]
-        assert set(names) == set(want[side]), side
+        assert set(names) == set(want[side]) - LARGE_ONLY, side
         for name, s, e in got:
             parent = want[side][name]
             if parent is not None:
@@ -183,3 +187,29 @@ def test_sync_spans_count_the_reads_of_each_range(coder, chunk_blocks):
     for side, got in zip(("encode", "decode"), _sides(spans)):
         syncs = [n for n, _, _ in got if n.startswith("sync.")]
         assert len(syncs) == CPU_SYNCS[side] * ranges, (side, syncs)
+
+
+@pytest.mark.parametrize("payload_bytes", [1 << 10, 64 << 20], ids=["1KiB", "64MiB"])
+def test_crc_parallel_opens_for_large_sections_only(payload_bytes):
+    """A 64 MiB payload's CRC is cut over threads on each side, inside
+    write_frame.crc and read_frame.crc; a 1 KiB one's is not, nor are the
+    other sections' (a few bytes each)."""
+    words = np.random.default_rng(5).integers(0, 2**32, payload_bytes // 4, dtype=np.uint32)
+    one = np.ones(1, np.uint64)
+    frame = Frame(block_len=128, streams=StreamDir(one, one, one, one, one - 1),
+                  blocks=BlockHeaders(*(np.zeros(1, np.uint8),) * 2, np.ones(1, np.uint16),
+                                      np.full(1, payload_bytes * 8, np.uint32),
+                                      np.zeros(1, np.uint8), np.zeros((1, 4), np.int32)),
+                  tables=(), payload_words=words)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        back = read_frame(write_frame(frame))
+    np.testing.assert_array_equal(back.payload_words, words)
+    spans = [(e.name()[len(trace.PREFIX):], e.start_ns(), e.start_ns() + e.duration_ns())
+             for e in prof.profiler.kineto_results.events()
+             if e.name().startswith(trace.PREFIX)]
+    threaded = payload_bytes >= 64 << 20 and native.host_threads() > 1
+    for parent in ("write_frame.crc", "read_frame.crc"):
+        inside = [n for n, s, e in spans
+                  if any(ps <= s and e <= pe for pn, ps, pe in spans if pn == parent)]
+        assert inside.count("crc.parallel") == threaded, parent
+    assert sum(n == "crc.parallel" for n, _, _ in spans) == 2 * threaded
