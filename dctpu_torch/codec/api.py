@@ -75,7 +75,9 @@ DEVICE_SHARE = 4
 # million streams make no million device copies; longer ones go straight
 # into each stream's own array, touched ahead on _TOUCH_THREADS. The value
 # was measured as the host feed's switch (chip_smoke.py, PERF.md §6) and is
-# kept for the decode: no cell sits near it (96 and 525,600 samples)
+# kept for the decode. Of the benchmark's cells, lcl.bulk (39,792 samples a
+# stream) takes the short path and dataport.bulk (525,600) the long one;
+# headend.daily decodes by decompress_flat, which has no switch
 _FLAT_PATH_MAX_MEAN_LEN = 131072
 # decompress makes the arrays of long streams on this many host threads,
 # each touched one sample a 4 KiB page, ahead of the copies into them, so
@@ -393,7 +395,8 @@ def encode_frame(
     before the first one's emission reads its coders back, so selection
     overlaps across devices; emission then reads each shard back (coders,
     sizes, words) before the next shard's emission is launched, so the
-    shards emit in turn. The results are concatenated in block order."""
+    shards emit in turn. The results are concatenated in block order.
+    Each range's launches and reads are one span ``range``."""
     if cfg.coder not in ("adaptive", *_CODER_ID):
         raise ValueError(f"unknown coder {cfg.coder!r}")
     L = cfg.block_len
@@ -404,16 +407,17 @@ def encode_frame(
     chunk_blocks = range_blocks(chunk_blocks, device_memory(devices), L)
     parts = []
     for c0, c1 in block_ranges(x_h.shape[0], chunk_blocks):
-        shards = shard_ranges(c0, c1, len(devices))
-        sels = [
-            select_range(x_h[a:b], n_h[a:b], hist_h[a:b], cfg, devices[i],
-                         backend, stages[i])
-            for i, a, b in shards
-        ]
-        parts += [
-            emit_range(sel, cfg, backend, stages[i])
-            for sel, (i, _, _) in zip(sels, shards)
-        ]
+        with span("range"):
+            shards = shard_ranges(c0, c1, len(devices))
+            sels = [
+                select_range(x_h[a:b], n_h[a:b], hist_h[a:b], cfg, devices[i],
+                             backend, stages[i])
+                for i, a, b in shards
+            ]
+            parts += [
+                emit_range(sel, cfg, backend, stages[i])
+                for sel, (i, _, _) in zip(sels, shards)
+            ]
     for stage in stages:
         stage.finish()
 
@@ -507,15 +511,16 @@ def decode_frame(
     average each get their own array, made and its pages touched on
     ``_TOUCH_THREADS`` host threads ahead of the copies, and filled by one
     copy from the device per shard it spans (span ``download.streams``);
-    short ones are downloaded into one array, then copied out of it, so
-    that a million streams make no million device copies."""
+    short ones are downloaded into one array (span ``download.flat``), then
+    copied out of it (span ``split.copies``), so that a million streams
+    make no million device copies."""
     host = Stages(stage_ms, "cpu")
     soff, ranges = decode_flat(frame, devices, stage_ms, chunk_blocks, backend)
     with host("host_split_streams"):
         lens, starts = _stream_samples(frame, soff)
     if takes_flat_path(lens):
         flat = _download_flat(soff, ranges)
-        with host("host_split_streams"):
+        with host("host_split_streams"), span("split.copies"):
             return [flat[a : a + k].copy()
                     for a, k in zip(starts.tolist(), lens.tolist())]
     ends = starts + lens
@@ -596,7 +601,7 @@ def _download_flat(soff: np.ndarray, ranges) -> np.ndarray:
     slice of one host array of soff[-1] samples."""
     flat = np.empty(int(soff[-1]), np.int32)
     for x, s0, s1, stage in ranges:
-        with stage("download"), span("sync.download"):
+        with stage("download"), span("download.flat"), span("sync.download"):
             torch.from_numpy(flat[s0:s1]).copy_(x)
     return flat
 
@@ -715,7 +720,8 @@ def decode_flat(
     to s1 = soff[b] on its device, as R's flat form writes them, and its
     device's ``Stages`` for the caller's ``download`` of them, which comes
     before the next range is launched. The stages' times are added once
-    the last shard is taken."""
+    the last shard is taken. Each range is one span ``range``, from its
+    launches to the caller's downloads of its shards."""
     L = frame.block_len
     B = frame.blocks.num_blocks
     with Stages(stage_ms, "cpu")("host_block_table"):
@@ -730,14 +736,15 @@ def decode_flat(
 
     def decoded():
         for c0, c1 in block_ranges(B, chunk_blocks):
-            shards = shard_ranges(c0, c1, len(devices))
-            res = [decode_range(frame, off_h, soff, coeffs[i], a, b, backend,
-                                stages[i])
-                   for i, a, b in shards]
-            for _, bad in res:
-                raise_if_bad(bad)
-            for (x, _), (i, a, b) in zip(res, shards):
-                yield x, int(soff[a]), int(soff[b]), stages[i]
+            with span("range"):
+                shards = shard_ranges(c0, c1, len(devices))
+                res = [decode_range(frame, off_h, soff, coeffs[i], a, b, backend,
+                                    stages[i])
+                       for i, a, b in shards]
+                for _, bad in res:
+                    raise_if_bad(bad)
+                for (x, _), (i, a, b) in zip(res, shards):
+                    yield x, int(soff[a]), int(soff[b]), stages[i]
         for stage in stages:
             stage.finish()
 

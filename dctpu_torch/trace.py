@@ -18,11 +18,17 @@ The names, by where they are opened:
 * ``codec/api.py``: the stages (``host_build_blocks``, ``upload``,
   ``select``, ``emit_<coder>``, ``compact``, ``download``,
   ``host_frame_assembly``; ``host_block_table``, ``decode_<coder>``,
-  ``reconstruct``, ``host_split_streams``, ``host_flatten``), inside them
-  the host feed's ``feed.gather`` (with ``feed.cast`` inside it when a
-  stream has to be cast to int32) and ``feed.native``, the assembly's ``assembly.columns`` and ``assembly.stream_dir``, and
+  ``reconstruct``, ``host_split_streams``, ``host_flatten``), around the
+  device stages of each range of blocks ``range`` (on a decode it holds
+  the caller's download of the range too), inside the stages the host
+  feed's ``feed.gather`` (with ``feed.cast`` inside it when a stream has
+  to be cast to int32) and ``feed.native``, the assembly's
+  ``assembly.columns`` and ``assembly.stream_dir``,
   ``download.streams``, a range's copies straight into the streams' own
-  arrays (``decompress`` of long streams);
+  arrays (``decompress`` of long streams), ``download.flat``, a range's
+  copy into one array of all samples (``decompress_flat``, and
+  ``decompress`` of short streams), and ``split.copies``, the copies of
+  short streams out of that array;
 * ``format/frame.py``: ``write_frame`` with ``.tables``, ``.payload`` and
   ``.crc``; ``read_frame`` with ``.sections``, ``.crc``, ``.tables`` and
   ``.payload``; inside either ``.crc``, ``crc.parallel`` for each section

@@ -113,12 +113,13 @@ def test_the_ranges_hold_exactly_the_valid_samples(monkeypatch, chunk_blocks):
 
 
 @pytest.mark.parametrize("path, spans", [
-    ("one array", {"sync.download"}),
+    ("one array", {"sync.download", "download.flat"}),
     ("own arrays", {"sync.download", "download.streams"}),
 ])
 def test_decompress_names_its_path_in_a_trace(monkeypatch, path, spans):
     """The long streams' path opens download.streams around a range's
-    copies; both keep one sync.download a range and host_split_streams."""
+    copies, the short streams' download.flat; both keep one sync.download
+    a range and host_split_streams."""
     _, data, _, _ = _case("rice")
     frame = read_frame(data)
     _switch(monkeypatch, path)

@@ -21,8 +21,8 @@ GROUP = {0: "rice", 1: "vertical"}
 # each span of a round trip and the span it lies in (None: none of the
 # program's); emit_* and decode_* are added per coder group
 ENCODE = {
-    "host_build_blocks": None, "upload": None, "select": None,
-    "sync.coders": None, "compact": None, "download": None,
+    "host_build_blocks": None, "range": None, "upload": "range", "select": "range",
+    "sync.coders": "range", "compact": "range", "download": "range",
     "sync.words": "download", "sync.choice": "download", "sync.k": "download",
     "sync.bit_len": "download", "host_frame_assembly": None,
     "assembly.columns": "host_frame_assembly",
@@ -42,9 +42,9 @@ FEED = {"flat": {"feed.gather": "host_build_blocks",
 DECODE = {
     "read_frame": None, "read_frame.sections": "read_frame",
     "read_frame.crc": "read_frame", "read_frame.tables": "read_frame",
-    "read_frame.payload": "read_frame", "host_block_table": None,
-    "upload": None, "reconstruct": None, "download": None,
-    "sync.download": "download", "host_flatten": None,
+    "read_frame.payload": "read_frame", "host_block_table": None, "range": None,
+    "upload": "range", "reconstruct": "range", "download": "range",
+    "download.flat": "download", "sync.download": "download.flat", "host_flatten": None,
     "crc.parallel": "read_frame.crc",
 }
 # spans that open only for sections of at least two threads' worth of bytes
@@ -120,8 +120,8 @@ def test_each_step_is_a_span_inside_its_parent(coder, feed, stage_ms):
     (data, _, _, _), spans = _traced(coder, stage_ms=stage_ms,
                                      cast=feed == "flat_cast", long=feed == "long")
     groups = _groups(data)
-    want = {"encode": {**ENCODE, **FEED[feed], **{f"emit_{g}": None for g in groups}},
-            "decode": {**DECODE, **{f"decode_{g}": None for g in groups}}}
+    want = {"encode": {**ENCODE, **FEED[feed], **{f"emit_{g}": "range" for g in groups}},
+            "decode": {**DECODE, **{f"decode_{g}": "range" for g in groups}}}
     if coder == "adaptive":
         assert groups == ["rice", "vertical"]
     for side, got in zip(("encode", "decode"), _sides(spans)):
@@ -187,6 +187,11 @@ def test_sync_spans_count_the_reads_of_each_range(coder, chunk_blocks):
     for side, got in zip(("encode", "decode"), _sides(spans)):
         syncs = [n for n, _, _ in got if n.startswith("sync.")]
         assert len(syncs) == CPU_SYNCS[side] * ranges, (side, syncs)
+        opened = [(s, e) for n, s, e in got if n == "range"]
+        assert len(opened) == ranges, side
+        for s, e in opened:  # each range's reads lie in its span
+            assert sum(s <= a and b <= e for n, a, b in got
+                       if n.startswith("sync.")) == CPU_SYNCS[side], side
 
 
 @pytest.mark.parametrize("payload_bytes", [1 << 10, 64 << 20], ids=["1KiB", "64MiB"])
