@@ -86,7 +86,9 @@ _FLAT_PATH_MAX_MEAN_LEN = 131072
 # thread; a decompress took 183-247 ms (medians of two processes) with the
 # arrays made and touched on 4 threads, 200-258 ms made on the calling
 # thread and touched on 4, 320-449 ms touched on 2, 318-804 ms not touched
-# (PERF.md §6)
+# (PERF.md §6). It also caps the threads of the short streams' copies out of
+# the flat download (_split), which take the same first touches of fresh
+# pages: one thread a native.FRAME_BYTES_PER_THREAD of samples
 _TOUCH_THREADS = 4
 _PAGE_SAMPLES = 1024
 # the reference decoder's backend names (dctpu/codec/api.py
@@ -512,8 +514,9 @@ def decode_frame(
     ``_TOUCH_THREADS`` host threads ahead of the copies, and filled by one
     copy from the device per shard it spans (span ``download.streams``);
     short ones are downloaded into one array (span ``download.flat``), then
-    copied out of it (span ``split.copies``), so that a million streams
-    make no million device copies."""
+    copied out of it into arrays of their own in one native call on host
+    threads (:func:`_split`, span ``split.copies``), so that a million
+    streams make no million device copies."""
     host = Stages(stage_ms, "cpu")
     soff, ranges = decode_flat(frame, devices, stage_ms, chunk_blocks, backend)
     with host("host_split_streams"):
@@ -521,8 +524,7 @@ def decode_frame(
     if takes_flat_path(lens):
         flat = _download_flat(soff, ranges)
         with host("host_split_streams"), span("split.copies"):
-            return [flat[a : a + k].copy()
-                    for a, k in zip(starts.tolist(), lens.tolist())]
+            return _split(flat, starts, lens)
     ends = starts + lens
     with ThreadPoolExecutor(_TOUCH_THREADS) as pool:
         out = [pool.submit(_fresh, k) for k in lens.tolist()]
@@ -541,6 +543,26 @@ def takes_flat_path(lens: np.ndarray) -> bool:
     """Whether :func:`decompress` downloads streams of these lengths into
     one flat array: a mean below ``_FLAT_PATH_MAX_MEAN_LEN`` samples."""
     return bool(lens.sum() < _FLAT_PATH_MAX_MEAN_LEN * lens.size)
+
+
+def _split(flat: np.ndarray, starts: np.ndarray, lens: np.ndarray) -> List[np.ndarray]:
+    """flat[starts[i] : starts[i] + lens[i]] for each stream i, each in a
+    new array of its own made on the calling thread. The copies run in one
+    native call (``native.scatter``) on one thread a
+    ``native.FRAME_BYTES_PER_THREAD`` of samples, at most
+    ``_TOUCH_THREADS``, so that the fresh pages' first touches are spread
+    over them (span ``split.parallel`` when more than one). Called only
+    after every download has landed: threads taking first touches stall a
+    pageable copy that runs beside them."""
+    out = tuple(np.empty(k, np.int32) for k in lens.tolist())
+    threads = max(1, min(_TOUCH_THREADS,
+                         4 * int(lens.sum()) // native.FRAME_BYTES_PER_THREAD))
+    if threads == 1:
+        native.scatter(flat, starts, out, 1)
+    else:
+        with span("split.parallel"):
+            native.scatter(flat, starts, out, threads)
+    return list(out)
 
 
 def _fresh(k: int) -> np.ndarray:

@@ -1,7 +1,9 @@
 // Frame I/O on the host (dctpu_torch/format/frame.py): the frame's one
 // output buffer, the directory and block-table rows written straight from
-// their columns, the payload copy, and the sections' CRC-32, each cut over
-// std::threads by the caller's thread count.
+// their columns, the payload copy, and the sections' CRC-32; and the
+// decode's copies of short streams out of its one flat download into their
+// own arrays (codec/api.py). Each is cut over std::threads by the caller's
+// thread count.
 //
 // The CRC is zlib's (IEEE 802.3, reflected, the value zlib.crc32 returns),
 // in the source, since the card machine need not have zlib's headers: on an
@@ -215,6 +217,31 @@ extern "C" void dctpu_torch_copy(uint8_t* dst, const uint8_t* src, int64_t n,
                                  int threads) {
   cut(n, threads, [&](int64_t, int64_t lo, int64_t hi) {
     std::memcpy(dst + lo, src + lo, hi - lo);
+  });
+}
+
+// For each of `streams` streams s, len[s] bytes from src + start[s] into
+// the array at address dst[s]. The streams' bytes, laid end to end in
+// stream order, are cut into near-equal pieces over up to `threads`
+// threads; a thread finds the stream its piece starts in by binary search
+// over the streams' ends there and copies the part of each stream in its
+// piece to the same offset of that stream's array, so a stream across a
+// cut is written by two threads at disjoint offsets. No GIL.
+extern "C" void dctpu_torch_scatter(const uint8_t* src, int64_t streams,
+                                    const int64_t* dst, const int64_t* start,
+                                    const int64_t* len, int threads) {
+  std::vector<int64_t> end(streams);
+  int64_t n = 0;
+  for (int64_t s = 0; s < streams; s++) end[s] = n += len[s];
+  cut(n, threads, [&](int64_t, int64_t lo, int64_t hi) {
+    for (int64_t s = std::upper_bound(end.begin(), end.end(), lo) - end.begin();
+         s < streams && end[s] - len[s] < hi; s++) {
+      const int64_t s0 = end[s] - len[s];
+      const int64_t a = std::max(lo, s0) - s0, b = std::min(hi, end[s]) - s0;
+      if (a < b)
+        std::memcpy(reinterpret_cast<uint8_t*>(dst[s]) + a, src + start[s] + a,
+                    b - a);
+    }
   });
 }
 

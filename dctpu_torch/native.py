@@ -7,7 +7,9 @@ stream's own buffer (:func:`build_streams`). Frame I/O
 its rows written from their columns (:func:`dir_rows`,
 :func:`block_rows`) and read back into columns (:func:`dir_columns`,
 :func:`block_columns`), copies (:func:`copy_bytes`) and section CRCs
-(:func:`crc32`), each cut over :func:`frame_threads` threads.
+(:func:`crc32`), each cut over :func:`frame_threads` threads. The decode's
+copies of streams out of one flat array into arrays of their own
+(:func:`scatter`, ``codec/api.py``), cut over the caller's thread count.
 
 ``csrc/host/host_feed.cpp`` and ``frame_io.cpp`` are built at first use
 into one library with ``g++`` (C++17,
@@ -120,6 +122,8 @@ def library() -> ctypes.CDLL:
     lib.dctpu_torch_crc32.restype = ctypes.c_uint32
     lib.dctpu_torch_copy.argtypes = [vp, vp, i64, c_int]
     lib.dctpu_torch_copy.restype = None
+    lib.dctpu_torch_scatter.argtypes = [vp, i64, _i64p, _i64p, _i64p, c_int]
+    lib.dctpu_torch_scatter.restype = None
     lib.dctpu_torch_dir_rows.argtypes = [vp, i64, *[vp] * 5, c_int]
     lib.dctpu_torch_dir_rows.restype = None
     lib.dctpu_torch_block_rows.argtypes = [vp, i64, *[vp] * 7, c_int]
@@ -239,6 +243,30 @@ def copy_bytes(dst: np.ndarray, src) -> None:
         raise ValueError(f"copy of {s.size} bytes into {d.size}")
     library().dctpu_torch_copy(d.ctypes.data, s.ctypes.data, s.size,
                                frame_threads(s.size))
+
+
+def scatter(src: np.ndarray, starts: np.ndarray, out: tuple, threads: int) -> None:
+    """out[s][:] = src[starts[s] : starts[s] + out[s].size] for every s:
+    ``src`` a C-contiguous int32 array, ``out`` a tuple of C-contiguous,
+    aligned, writable int32 ndarrays, in one native call on up to
+    ``threads`` threads without the GIL (the streams' bytes end to end, cut
+    into equal pieces). ValueError for any other array, or a stream that
+    runs outside ``src``."""
+    if not (isinstance(src, np.ndarray) and src.dtype == np.int32
+            and src.flags.c_contiguous):
+        raise ValueError("scatter takes a C-contiguous int32 source")
+    if type(out) is not tuple:
+        raise TypeError(f"a tuple of arrays, not {type(out).__name__}")
+    lens, addr, marked = stream_addresses(out)
+    if marked.size or not all(a.flags.writeable for a in out):
+        raise ValueError("scatter writes into C-contiguous, writable int32 arrays")
+    starts = np.ascontiguousarray(starts, dtype=np.int64)
+    if starts.shape != lens.shape:
+        raise ValueError(f"{starts.size} starts for {lens.size} arrays")
+    if lens.size and ((starts < 0).any() or (starts + lens > src.size).any()):
+        raise ValueError(f"a stream outside the source's {src.size} samples")
+    library().dctpu_torch_scatter(src.ctypes.data, lens.size, addr, 4 * starts,
+                                  4 * lens, threads)
 
 
 def new_bytes(n: int) -> Tuple[bytes, np.ndarray]:

@@ -28,7 +28,8 @@ The names, by where they are opened:
   arrays (``decompress`` of long streams), ``download.flat``, a range's
   copy into one array of all samples (``decompress_flat``, and
   ``decompress`` of short streams), and ``split.copies``, the copies of
-  short streams out of that array;
+  short streams out of that array (with ``split.parallel`` inside it when
+  they are cut over more than one host thread);
 * ``format/frame.py``: ``write_frame`` with ``.tables``, ``.payload`` and
   ``.crc``; ``read_frame`` with ``.sections``, ``.crc``, ``.tables`` and
   ``.payload``; inside either ``.crc``, ``crc.parallel`` for each section
